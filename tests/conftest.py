@@ -7,3 +7,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with its reason "
+        "where torch.cuda.is_available() is False")
