@@ -1,34 +1,63 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port starts and serves on the GPU.
 
-    python3 chip_smoke.py [--requests 500] [--epochs 150] [--out FILE]
+    python3 chip_smoke.py [--requests 500] [--epochs 150] [--seed 0]
+                          [--out FILE]
 
 Run from the root of a checkout on a machine with one NVIDIA H100. It
-builds the CUDA kernels of ``src/repro_torch/csrc`` and drives the port's
-main path: it fits the paper-grid PROFET predictor (4 devices, 346 cases,
+builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, all at once) and drives the port's two paths.
+
+The PROFET path: it fits the paper-grid predictor (4 devices, 346 cases,
 linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
 seed 0) on the card, then
 
   1. serves the ``synthetic_requests`` stream twice through
      ``LatencyService`` (waves of 64; banked: one grouped forest launch per
      wave) and one wave through the per-group path (single-forest kernel);
-  2. holds each kernel against its plain PyTorch version on the card, at
-     the shapes the serving run gave it and on random forests (max abs
-     difference must be 0), and times both, and the one PyTorch call that
-     computes the same function where there is one (``mean(0)`` for the
-     tree mean; none computes a forest traversal);
+  2. holds each forest kernel against its plain PyTorch version on the
+     card, at the shapes the serving run gave it and on random forests
+     (max abs difference must be 0), and times both, and the one PyTorch
+     call that computes the same function where there is one (``mean(0)``
+     for the tree mean; none computes a forest traversal);
   3. holds the card's answers for one wave against the same model run with
      ``device="cpu"`` (rtol 1e-5, the float32 DNN member's bar);
   4. replays the stream once more through a fresh service under
      ``torch.profiler`` and prints the card's idle share and top kernels
      (profiler overhead included; the untraced replays give the latency).
 
-Launch counts are zeroed just before step 1 and read just after it. Any
-failed check exits non-zero. The last line is the JSON result; the line
-before it lists every kernel with its launches, error and times.
-Without CUDA, or outside a checkout, it exits 2 and prints no result.
+The LM serving path, at the full published widths and depths, random
+float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
+
+  5. the llama3.2-1b prefill step on (4, 2048) tokens: exactly 16
+     flash-attention launches per call, finite next tokens and logits,
+     median step time. The model (params rounded to bf16 values) is held
+     end to end against the same model with the plain attention in float32
+     (atol 1e-4, rtol 1e-4, the CPU parity tests' bar); in bf16 its
+     last-position logits may end at most 2x as far from that float32
+     plain run as the bf16 plain run's do;
+  6. the mamba2-130m prefill step on (4, 2048) tokens: exactly 24 SSD-scan
+     launches per call, the same checks;
+  7. ``Engine`` serving 8 requests for each model (4 slots, 16 new tokens,
+     max_len 128, continuous), as ``launch/serve.py`` does by default; it
+     launches neither kernel (prefill goes through the decode step);
+  8. the two kernels against their plain versions at the inputs phases 5
+     and 6 gave them and at random shapes (GQA, MQA, KV == H, D 64 and 128,
+     ragged S, f32 and bf16; SSD chunks 64 and 256), bars f32 atol 2e-5 /
+     rtol 1e-4 and bf16 atol 6e-3 / rtol 3e-2 (SSD after dividing by max
+     |ref|), timed with their plain versions and, for attention, PyTorch's
+     ``scaled_dot_product_attention`` (timed only; the port never calls it);
+  9. one prefill of each model under ``torch.profiler``: idle share and
+     top device kernels.
+
+Launch counts are zeroed just before each path's main run and read just
+after it. Any failed check exits non-zero. The last line is the JSON
+result; the line before it lists every kernel with its launches, error,
+times and bound. Without CUDA, or outside a checkout, it exits 2 and prints
+no result.
 """
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -38,11 +67,18 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and float64 outside the tensor
-# cores (the kernels compare and add in float64)
+# NVIDIA H100 SXM data sheet: HBM3 rate; float64 outside the tensor cores
+# (the forest kernels compare and add in float64); dense bf16 on the tensor
+# cores (the LM kernels' inputs are bf16 on the main path)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+BF16_OPS_PER_S = 989e12
+LM_BATCH, LM_SEQ = 4, 2048
+KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan")
 RTOL_CARD_VS_CPU = 1e-5
+# how much farther from the float32 plain run the bf16 run through a kernel
+# may end than the bf16 plain run
+BF16_VS_PLAIN = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -158,18 +194,16 @@ def replay_once(svc, reqs) -> dict:
             "requests_per_s": len(lat) / wall}
 
 
-def traced_replay(torch, svc, reqs) -> dict:
-    """One replay of a fresh service under ``torch.profiler``: the share of
-    its wall time the card spent running kernels, and the kernels that
-    took the most device time."""
+def traced(torch, run) -> dict:
+    """``run()`` under ``torch.profiler``: the share of its wall time the
+    card spent running kernels, and the kernels that took the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    for r in reqs:
-        svc.submit(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.run()
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -185,9 +219,16 @@ def traced_replay(torch, svc, reqs) -> dict:
                             for e in top]}
 
 
-def bound_ms(nbytes, ops):
+def traced_replay(torch, svc, reqs) -> dict:
+    """One replay of a fresh service under ``torch.profiler``."""
+    for r in reqs:
+        svc.submit(r)
+    return traced(torch, svc.run)
+
+
+def bound_ms(nbytes, ops, ops_per_s=FP64_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP64_OPS_PER_S
+    t_ops = ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -222,6 +263,339 @@ def random_forest_stack(torch, device, d=33, seed=0):
     return out, Xq, gq
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+
+def median_ms(torch, fn, calls=5):
+    """Median time of one ``fn()`` between CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(calls):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[calls // 2]
+
+
+def flash_work(q, k):
+    """(bytes, operations) of causal attention: q, k, v read once and the
+    output written once; 4 D operations for each (query, key <= query)
+    pair of a head (q.k and p.v)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
+    return nbytes, 4 * D * B * H * S * (S + 1) // 2
+
+
+def ssd_work(X, Bc, chunk):
+    """(bytes, operations) of the chunked SSD scan: X, Adt (f32), Bc, Cc
+    read once and Y written once; per (b, h, chunk) C.B^T (2 N) and
+    scores.X (2 P) for each (position, position j <= it) pair of the chunk,
+    as ``flash_work`` counts only the causal pairs, plus C.S^T and the
+    state update (2 Q N P each)."""
+    B, S, H, P = X.shape
+    N = Bc.shape[-1]
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * X.element_size() \
+        + B * S * H * 4
+    per_chunk = chunk * (chunk + 1) * (N + P) + 4 * chunk * N * P
+    return nbytes, B * H * (S // chunk) * per_chunk
+
+
+def lm_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    return {**fa_mod.launches, **ssd_mod.launches}
+
+
+def lm_reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    fa_mod.reset_launches()
+    ssd_mod.reset_launches()
+
+
+def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
+    """Phases 5 and 6: one model's prefill step at full width on (4, 2048)
+    tokens. Returns the model, its config, the kernel's inputs on the main
+    path and the phase's report."""
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = CB.get_config(arch)
+    t0 = time.perf_counter()
+    model32 = M.init(cfg, seed=args.seed, device=dev)
+    # round the float32 params to bf16 values in place, so that the float32
+    # plain run below computes the served bf16 model's function in float32
+    with torch.no_grad():
+        for t in model32.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model32.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ))).to(dev)
+    batch = {"tokens": tokens}
+    pv = L.padded_vocab(cfg.vocab_size)
+
+    # the model through the kernel against the plain version, in float32
+    # end to end, at the CPU parity tests' float32 bar
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    last32 = M.forward(model32, cfg32, batch)[0][:, -1]
+    plain32 = M.forward(model32, cfg32, batch, backend="torch")[0][:, -1]
+    err32 = float((last32 - plain32).abs().max())
+    check(bool(torch.allclose(last32, plain32, atol=1e-4, rtol=1e-4)),
+          f"{arch} float32 last-position logits through the {kernel} kernel "
+          f"equal the plain version's within atol 1e-4 rtol 1e-4 (max abs "
+          f"diff {err32:.3e}, max |logit| {float(plain32.abs().max()):.3f})")
+    del last32
+
+    # the main path: bf16 params, as the prefill step is served
+    model = M.cast(model32, cfg, torch.bfloat16)
+    del model32
+    torch.cuda.empty_cache()
+    step = make_prefill_step(cfg)
+
+    # record the kernel's inputs of the first block on the main path
+    mod = fa_mod if kernel == "flash_attention" else ssd_mod
+    launch = getattr(mod, kernel)
+    seen = []
+
+    def recording(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return launch(*a, **kw)
+
+    setattr(mod, kernel, recording)
+    lm_reset_launches()
+    nxt = step(model, batch)
+    torch.cuda.synchronize()
+    counts = lm_launches()
+    setattr(mod, kernel, launch)
+    other = "ssd_scan" if kernel == "flash_attention" else "flash_attention"
+    check(counts[kernel] == cfg.num_layers and counts[other] == 0,
+          f"{arch} prefill: {counts[kernel]} {kernel} launches, one per "
+          f"block ({cfg.num_layers}), and {counts[other]} {other}")
+    check(tuple(nxt.shape) == (LM_BATCH, 1) and nxt.dtype == torch.int32
+          and bool(((nxt >= 0) & (nxt < pv)).all()),
+          f"{arch} prefill: ({LM_BATCH}, 1) int32 next tokens in [0, {pv})")
+
+    # in bf16 the kernel's run and the plain run round differently after
+    # every block; each is held against the float32 plain run of the same
+    # (bf16-valued) params, and the kernel's run may stray from it at most
+    # BF16_VS_PLAIN times as far as the plain run does
+    last = M.forward(model, cfg, batch)[0][:, -1].float()
+    plain = M.forward(model, cfg, batch, backend="torch")[0][:, -1].float()
+    check(bool(torch.isfinite(last).all())
+          and tuple(last.shape) == (LM_BATCH, pv),
+          f"{arch} bf16 last-position logits finite, ({LM_BATCH}, {pv})")
+    err = float((last - plain).abs().max())
+    err_k = float((last - plain32).abs().max())
+    err_p = float((plain - plain32).abs().max())
+    same = int((last.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"{arch} bf16 logits against the plain {kernel}: max abs diff "
+          f"{err:.3e}, max |logit| {float(plain.abs().max()):.3f}, "
+          f"{same} of {LM_BATCH} next tokens equal")
+    check(err_k <= BF16_VS_PLAIN * err_p,
+          f"{arch} bf16 logits through the {kernel} kernel stray from the "
+          f"float32 plain run {err_k:.3e}, within {BF16_VS_PLAIN} x the bf16 "
+          f"plain run's {err_p:.3e}")
+    del plain32
+
+    lm_reset_launches()
+    calls = 5
+    ms = median_ms(torch, lambda: step(model, batch), calls=calls)
+    check(lm_launches()[kernel] == cfg.num_layers * (calls + 1),
+          f"{arch}: {cfg.num_layers} {kernel} launches per timed call")
+    rep = {"params": n_params, "init_s": init_s, "launches": counts[kernel],
+           "step_ms": ms, "tokens_per_s": LM_BATCH * LM_SEQ / ms * 1e3,
+           "f32_logits_max_abs_diff_vs_plain": err32,
+           "logits_max_abs_diff_vs_plain": err,
+           "bf16_kernel_vs_f32_plain": err_k,
+           "bf16_plain_vs_f32_plain": err_p,
+           "next_token_equal_vs_plain": same,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{arch} prefill: {json.dumps(rep)}")
+    return {"cfg": cfg, "model": model, "seen": seen[0], "report": rep,
+            "step": step, "batch": batch}
+
+
+def lm_serve(torch, np, arch, cfg, model, args) -> dict:
+    """Phase 7: 8 requests through ``Engine`` (4 slots, 16 new tokens,
+    max_len 128, continuous), prompts drawn as ``launch/serve.py`` does."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(cfg, model, batch_slots=4, max_len=128)
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for _ in range(8):
+        plen = int(rng.integers(2, 12))
+        reqs.append(eng.submit(
+            rng.integers(1, min(cfg.vocab_size, 1000), size=plen).tolist(),
+            max_new_tokens=16))
+    lm_reset_launches()
+    eng.run()
+    torch.cuda.synchronize()
+    pv = L.padded_vocab(cfg.vocab_size)
+    s = eng.stats
+    check(all(r.done and len(r.output) == 16
+              and all(0 <= t < pv for t in r.output) for r in reqs)
+          and sum(lm_launches().values()) == 0,
+          f"{arch} engine: 8 requests, 16 tokens each in [0, {pv}), no "
+          f"kernel launched")
+    rep = {"requests": len(reqs), "decode_steps": s.decode_steps,
+           "prefill_tokens": s.prefill_tokens,
+           "generated_tokens": s.generated_tokens, "wall_s": s.wall_s,
+           "tokens_per_s": s.tokens_per_s,
+           "beyond_vocab_tokens": sum(t >= cfg.vocab_size for r in reqs
+                                      for t in r.output)}
+    print(f"{arch} serve: {json.dumps(rep)}")
+    return rep
+
+
+def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
+    """Phase 8: each kernel against its plain version at the main path's
+    inputs and at random shapes. Returns (max abs error at the main path's
+    inputs per kernel, the cases checked)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    rng = np.random.default_rng(1)
+
+    def randn(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    def tol(dtype):
+        return dict(atol=6e-3, rtol=3e-2) if dtype == torch.bfloat16 \
+            else dict(atol=2e-5, rtol=1e-4)
+
+    cases = []
+    (q, k, v), _ = flash_in
+    flash_sets = [("main path", q, k, v)]
+    for B, S, H, KV, D, dt in [(2, 512, 32, 8, 64, torch.float32),
+                               (2, 300, 8, 1, 128, torch.bfloat16),
+                               (1, 1024, 16, 16, 128, torch.bfloat16),
+                               (1, 300, 4, 2, 64, torch.float32)]:
+        flash_sets.append((f"{(B, S, H, KV, D)} {dt}".replace("torch.", ""),
+                           randn((B, S, H, D), dt), randn((B, S, KV, D), dt),
+                           randn((B, S, KV, D), dt)))
+    errs = {}
+    for name, q, k, v in flash_sets:
+        got = fa_mod.flash_attention(q, k, v, backend="cuda").float()
+        want = fa_mod.flash_attention(q, k, v, backend="torch").float()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        errs.setdefault("flash_attention", e)
+        ok = bool(torch.allclose(got, want, **tol(q.dtype)))
+        cases.append({"kernel": "flash_attention", "case": name,
+                      "max_abs_err": e, "ok": ok})
+        check(ok, f"flash_attention kernel equals its plain version, "
+              f"{name} (max abs err {e:.3e})")
+
+    (X, Adt, Bc, Cc), kw = ssd_in
+    ssd_sets = [("main path", X, Adt, Bc, Cc, kw["chunk"])]
+    for B, S, H, P, N, dt, chunk in [
+            (2, 512, 8, 64, 128, torch.float32, 64),
+            (1, 1024, 4, 64, 128, torch.bfloat16, 256),
+            (1, 192, 2, 32, 64, torch.float32, 64)]:
+        ssd_sets.append((
+            f"{(B, S, H, P, N)} {dt} chunk {chunk}".replace("torch.", ""),
+            randn((B, S, H, P), dt),
+            -torch.nn.functional.softplus(randn((B, S, H), torch.float32))
+            * 0.5, randn((B, S, N), dt), randn((B, S, N), dt), chunk))
+    for name, X, Adt, Bc, Cc, chunk in ssd_sets:
+        got = ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                               backend="cuda").float()
+        want = ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                                backend="torch").float()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        errs.setdefault("ssd_scan", e)
+        scale = float(want.abs().max())
+        ok = bool(torch.allclose(got / scale, want / scale, **tol(X.dtype)))
+        cases.append({"kernel": "ssd_scan", "case": name, "max_abs_err": e,
+                      "max_abs_ref": scale, "ok": ok})
+        check(ok, f"ssd_scan kernel equals its plain version, {name} (max "
+              f"abs err {e:.3e}, max |ref| {scale:.3f})")
+    return errs, cases
+
+
+def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs) -> list:
+    """The LM kernels' lines: times at the main path's inputs beside their
+    bounds, their plain versions' times and SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    (q, k, v), _ = flash_in
+    (X, Adt, Bc, Cc), kw = ssd_in
+    chunk = kw["chunk"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows = []
+    for name, kern, plain, lib, work, replaces in [
+        ("flash_attention",
+         lambda: fa_mod.flash_attention(q, k, v, backend="cuda"),
+         lambda: fa_mod.flash_attention(q, k, v, backend="torch"),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True),
+         flash_work(q, k), "src/repro/kernels/flash_attention.py:74"),
+        ("ssd_scan",
+         lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                                  backend="cuda"),
+         lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                                  backend="torch"),
+         None, ssd_work(X, Bc, chunk), "src/repro/kernels/ssd_scan.py:70"),
+    ]:
+        b_ms, b_by = bound_ms(*work, ops_per_s=BF16_OPS_PER_S)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": time_kernel_ms(torch, kern, iters=10),
+            "plain_ms": time_plain_ms(torch, plain, iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": (time_kernel_ms(torch, lib, iters=20)
+                           if lib is not None else None)})
+        print(f"{name}: {json.dumps(rows[-1])} (bytes {work[0]}, "
+              f"operations {work[1]})")
+    return rows
+
+
+def lm_phases(torch, np, args, dev, report) -> list:
+    """Phases 5 to 9; returns the LM kernels' lines."""
+    runs = {}
+    for arch, kernel in (("llama3.2-1b", "flash_attention"),
+                         ("mamba2-130m", "ssd_scan")):
+        runs[kernel] = lm_prefill(torch, np, arch, kernel, args, dev)
+    counts = {k: r["report"]["launches"] for k, r in runs.items()}
+    report["lm_prefill"] = {k: r["report"] for k, r in runs.items()}
+    report["lm_serve"] = {k: lm_serve(torch, np, r["cfg"].name, r["cfg"],
+                                      r["model"], args)
+                          for k, r in runs.items()}
+    errs, cases = lm_kernel_checks(torch, np, runs["flash_attention"]["seen"],
+                                   runs["ssd_scan"]["seen"], dev)
+    report["lm_kernel_cases"] = cases
+    rows = lm_kernel_rows(torch, runs["flash_attention"]["seen"],
+                          runs["ssd_scan"]["seen"], counts, errs)
+    report["lm_trace"] = {}
+    for k, r in runs.items():
+        tr = traced(torch, lambda: r["step"](r["model"], r["batch"]))
+        report["lm_trace"][k] = tr
+        print(f"{r['cfg'].name} traced prefill: {json.dumps(tr)}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
@@ -246,7 +620,7 @@ def main(argv=None) -> int:
     from repro_torch.convert import profet_from_numpy, profet_to_numpy
     from repro_torch.core import workloads
     from repro_torch.core.predictor import ProfetConfig
-    from repro_torch.kernels import forest_eval
+    from repro_torch.kernels import _build, forest_eval
     from repro_torch.serve import LatencyService, synthetic_requests
 
     card = card_line()
@@ -257,9 +631,10 @@ def main(argv=None) -> int:
 
     # -- build ----------------------------------------------------------
     t0 = time.perf_counter()
-    forest_eval.library()
+    _build.build_all(KERNEL_SOURCES)
     report["build_s"] = time.perf_counter() - t0
-    print(f"build: forest_eval.cu in {report['build_s']:.1f} s")
+    print(f"build: {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} in "
+          f"{report['build_s']:.1f} s")
 
     # -- fit the --full configuration on the card -------------------------
     t0 = time.perf_counter()
@@ -453,6 +828,9 @@ def main(argv=None) -> int:
     trace = traced_replay(torch, LatencyService(oracle, max_wave=64), reqs)
     print(f"trace: {json.dumps(trace)}")
     report["trace"] = trace
+
+    # -- 5.-9. the LM serving path -------------------------------------------
+    kernels += lm_phases(torch, np, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

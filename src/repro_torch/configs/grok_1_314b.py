@@ -1,0 +1,29 @@
+"""Grok-1-314B [moe]: 64L d_model=6144 48H (GQA kv=8) d_ff=32768
+vocab=131072, MoE 8 experts top-2. [hf:xai-org/grok-1; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    num_layers=64,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=32768,
+    vocab_size=131072,
+    num_experts=8,
+    num_experts_per_tok=2,
+)
+
+SMOKE = ModelConfig(
+    name="grok-1-314b-smoke",
+    family="moe",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    num_experts=2,
+    num_experts_per_tok=2,
+)

@@ -1,6 +1,8 @@
-"""Carry a fitted PROFET model across as plain numpy state.
+"""Carry models across as plain numpy state: a fitted PROFET model
+(:func:`profet_from_numpy` / :func:`profet_to_numpy`) and an LM's
+parameters (:func:`lm_from_numpy` / :func:`lm_to_numpy`).
 
-The state is a dict of numpy arrays, strings, numbers, lists and dicts —
+A PROFET state is a dict of numpy arrays, strings, numbers, lists and dicts —
 nothing framework-specific — so a model fitted by the JAX reference can be
 rebuilt here (and a model fitted here moved to another device):
 
@@ -113,3 +115,57 @@ def profet_to_numpy(profet: Profet) -> dict:
                     for kind, scalers in (("batch", profet.batch_scalers),
                                           ("pixel", profet.pixel_scalers))},
     }
+
+
+def lm_from_numpy(cfg, params: dict, device="cuda"):
+    """The port's LM (``repro_torch.models.model``) holding ``params``, the
+    reference's parameter tree as ``M.init`` returns it after
+    ``np.asarray``: nested dicts of numpy arrays, every leaf under
+    ``"blocks"`` stacked on a leading layer axis. Dtypes are kept."""
+    from repro_torch.models import model as M
+    dev = resolve_device(device)
+    state = {}
+    for key, arr in _flatten(params):
+        if key.startswith("blocks."):
+            rest = key[len("blocks."):]
+            for i in range(arr.shape[0]):
+                state[f"blocks.{i}.{rest}"] = torch.from_numpy(
+                    np.array(arr[i])).to(dev)
+        else:
+            state[key] = torch.from_numpy(np.array(arr)).to(dev)
+    model = M.build(cfg, device="meta")
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+def lm_to_numpy(model) -> dict:
+    """The inverse of :func:`lm_from_numpy`: the reference's parameter tree
+    of the port's LM, copied to the host."""
+    params: dict = {}
+    per_layer: dict = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().cpu().numpy()
+        if key.startswith("blocks."):
+            i, rest = key[len("blocks."):].split(".", 1)
+            per_layer.setdefault(rest, {})[int(i)] = arr
+        else:
+            _set(params, key, arr)
+    for rest, layers in per_layer.items():
+        _set(params, f"blocks.{rest}",
+             np.stack([layers[i] for i in range(len(layers))]))
+    return params
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+def _set(tree: dict, key: str, value) -> None:
+    *path, leaf = key.split(".")
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[leaf] = value

@@ -1,12 +1,19 @@
-"""Build a ``csrc/*.cu`` source into a shared library with ``nvcc`` and load
-it with ``ctypes``.
+"""Build a ``csrc/*.cu`` source into a shared library with ``nvcc``, load it
+with ``ctypes``, and the dispatch every kernel wrapper shares.
 
 The library is built at first use into ``<checkout>/build/kernels/``. Its
 file name carries a hash of the source and the compiler flags, so a stale
 ``.so`` is never loaded: editing the source builds a new one. The build
 writes to a temporary name and renames it into place, so a concurrent or
 interrupted build never leaves a half-written library under the final
-name.
+name. :func:`build_all` runs one ``nvcc`` per source, all at once.
+
+Dispatch (``backend`` of every wrapper): ``"auto"`` launches the kernel for
+CUDA tensors and runs the plain version for CPU tensors; ``"cuda"``
+launches the kernel and raises for CPU tensors; ``"torch"`` runs the plain
+version on the tensors' own device (how ``chip_smoke.py`` holds a kernel
+against it). A failed launch raises; nothing falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -16,12 +23,19 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# bytes of shared memory one block may use on Hopper (after opting in)
+SMEM_PER_BLOCK = 232_448
+# the dtype codes of the csrc entry points that take float32 or bfloat16
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -49,26 +63,69 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def build_all(names: Iterable[str]) -> List[pathlib.Path]:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
+    ``nvcc`` process per source, all started together."""
+    names = list(names)
+    outs = [library_path(n) for n in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}.cu:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, cached per process;
+    every entry point of ``signatures`` gets its ``argtypes`` and returns a
+    C ``int`` (the launch's ``cudaError_t``)."""
     lib = _LOADED.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def use_kernel(x: torch.Tensor, backend: str, module: str) -> bool:
+    """Whether a wrapper of ``module`` given ``x`` launches its kernel (see
+    the module docstring); raises for ``backend="cuda"`` on a CPU tensor."""
+    if backend == "auto":
+        return x.is_cuda
+    if backend == "cuda":
+        if not x.is_cuda:
+            raise ValueError(f"backend='cuda' needs CUDA tensors; got a "
+                             f"tensor on {x.device}")
+        return True
+    if backend == "torch":
+        return False
+    raise ValueError(f"unknown {module} backend {backend!r}")
+
+
+def raise_on(rc: int, fn: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")

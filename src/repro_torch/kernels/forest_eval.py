@@ -20,11 +20,10 @@ reference's production path (``leaf_values_grouped_numpy`` /
 ``leaf_values_numpy``), and :func:`predict` / :func:`predict_grouped`
 bitwise equal to ``repro``'s ``predict`` / ``predict_grouped``.
 
-Dispatch (``backend``): ``"auto"`` launches the kernel for CUDA tensors
-and runs the plain version for CPU tensors; ``"cuda"`` launches the kernel
-and raises for CPU tensors; ``"torch"`` runs the plain version on the
-tensors' own device (how ``chip_smoke.py`` holds a kernel against it). A
-failed launch raises; nothing falls back to the plain version.
+Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it:
+``"auto"`` launches the kernel for CUDA tensors and runs the plain version
+for CPU tensors. A failed launch raises; nothing falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -32,6 +31,8 @@ import ctypes
 from typing import Dict
 
 import torch
+
+from repro_torch.kernels import _build
 
 # launches of each kernel in this process (the plain versions count none)
 launches: Dict[str, int] = {"leaf_values_grouped": 0, "leaf_values": 0,
@@ -50,7 +51,6 @@ _SIGNATURES = {
                          ctypes.c_longlong, ctypes.c_void_p,
                          ctypes.c_void_p],
 }
-_LIB = None
 
 
 def reset_launches() -> None:
@@ -60,28 +60,7 @@ def reset_launches() -> None:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from source at first use."""
-    global _LIB
-    if _LIB is None:
-        from repro_torch.kernels import _build
-        lib = _build.load("forest_eval")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _use_kernel(x: torch.Tensor, backend: str) -> bool:
-    if backend == "auto":
-        return x.is_cuda
-    if backend == "cuda":
-        if not x.is_cuda:
-            raise ValueError(f"backend='cuda' needs CUDA tensors; got a "
-                             f"tensor on {x.device}")
-        return True
-    if backend == "torch":
-        return False
-    raise ValueError(f"unknown forest_eval backend {backend!r}")
+    return _build.load("forest_eval", _SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -108,11 +87,6 @@ def _check_forest(X, feat, thr, left, right, value, lead: tuple) -> None:
     _check("left", left, torch.int32, shape, dev)
     _check("right", right, torch.int32, shape, dev)
     _check("value", value, torch.float64, shape, dev)
-
-
-def _raise_on(rc: int, fn: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +153,7 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
     int64 ``(G,)``. The range of ``gid`` is checked on the card, not on
     the host (that would sync every wave): a row whose ``gid`` lies outside
     ``[0, G)`` reads no forest and gets NaN in every tree."""
-    if not _use_kernel(X, backend):
+    if not _build.use_kernel(X, backend, "forest_eval"):
         return leaf_values_grouped_plain(X, gid, feat, thr, left, right,
                                          value, depth)
     m = X.shape[0]
@@ -196,7 +170,7 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
             left.data_ptr(), right.data_ptr(), value.data_ptr(),
             depth.data_ptr(), G, m, X.shape[1], T, N, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "forest_leaves_grouped")
+    _build.raise_on(rc, "forest_leaves_grouped")
     launches["leaf_values_grouped"] += 1
     return out
 
@@ -221,7 +195,7 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
                 backend: str = "auto") -> torch.Tensor:
     """Single-forest traversal, ``(T, rows)`` float64 leaf values; forest
     arrays ``(T, N)``, ``depth`` the forest's grown depth."""
-    if not _use_kernel(X, backend):
+    if not _build.use_kernel(X, backend, "forest_eval"):
         return leaf_values_plain(X, feat, thr, left, right, value, depth)
     _check_forest(X, feat, thr, left, right, value, ())
     m, D = X.shape
@@ -234,7 +208,7 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
             X.data_ptr(), feat.data_ptr(), thr.data_ptr(), left.data_ptr(),
             right.data_ptr(), value.data_ptr(), int(depth), m, D, T, N,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "forest_leaves")
+    _build.raise_on(rc, "forest_leaves")
     launches["leaf_values"] += 1
     return out
 
@@ -257,7 +231,7 @@ def tree_mean_plain(vals: torch.Tensor) -> torch.Tensor:
 
 def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """``(rows,)`` float64 mean of ``(T, rows)`` float64 leaf values."""
-    if not _use_kernel(vals, backend):
+    if not _build.use_kernel(vals, backend, "forest_eval"):
         return tree_mean_plain(vals)
     if vals.dim() != 2:
         raise ValueError(f"vals must be (T, rows); got {tuple(vals.shape)}")
@@ -270,7 +244,7 @@ def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
         rc = library().forest_tree_mean(
             vals.data_ptr(), T, m, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "forest_tree_mean")
+    _build.raise_on(rc, "forest_tree_mean")
     launches["tree_mean"] += 1
     return out
 

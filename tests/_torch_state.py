@@ -57,3 +57,26 @@ def fit_small_repro(members, n_trees=8, dnn_epochs=4, seed=0):
     cfg = ProfetConfig(members=tuple(members), n_trees=n_trees,
                        dnn_epochs=dnn_epochs, seed=seed)
     return LatencyOracle.fit(small_dataset(), cfg)
+
+
+def lm_pair(arch: str, dtype: str = "float32", seed: int = 0, **overrides):
+    """A smoke-size LM of both packages with the same parameters: the
+    reference's ``(cfg, params)`` from ``jax.random`` and the port's
+    ``(cfg, model)`` carried across by ``repro_torch.convert.lm_from_numpy``
+    on the CPU. ``dtype`` is the activations' dtype; ``overrides`` replace
+    config fields in both."""
+    import jax
+
+    from repro.configs import base as CB
+    from repro.models import model as JM
+    from repro_torch.configs import base as TCB
+    from repro_torch.convert import lm_from_numpy
+
+    jcfg = dataclasses.replace(CB.get_config(arch, smoke=True), dtype=dtype,
+                               **overrides)
+    tcfg = dataclasses.replace(TCB.get_config(arch, smoke=True), dtype=dtype,
+                               **overrides)
+    params, _ = JM.init(jax.random.PRNGKey(seed), jcfg)
+    model = lm_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                          device="cpu")
+    return jcfg, params, tcfg, model
