@@ -42,11 +42,16 @@ float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
      max_len 128, continuous), as ``launch/serve.py`` does by default; it
      launches neither kernel (prefill goes through the decode step);
   8. the two kernels against their plain versions at the inputs phases 5
-     and 6 gave them and at random shapes (GQA, MQA, KV == H, D 64 and 128,
-     ragged S, f32 and bf16; SSD chunks 64 and 256), bars f32 atol 2e-5 /
-     rtol 1e-4 and bf16 atol 6e-3 / rtol 3e-2 (SSD after dividing by max
-     |ref|), timed with their plain versions and, for attention, PyTorch's
-     ``scaled_dot_product_attention`` (timed only; the port never calls it);
+     and 6 gave them and at random shapes (flash: GQA, MQA, KV == H, D 16,
+     32, 64 and 128, S 300 and 1000, f32 and bf16; SSD: P 32, 64 and 128,
+     N 64 and 128, chunks 64, 128 and 256, 16 chunks at S 4096), bars f32
+     atol 2e-5 / rtol 1e-4 and bf16 atol 6e-3 / rtol 3e-2 (SSD after
+     dividing by max |ref|); two bf16 launches at the main path's inputs
+     must give the same bits; each library's SASS must hold tensor-core
+     ``HMMA`` instructions (``cuobjdump``); timed with their plain versions
+     and, for attention, PyTorch's ``scaled_dot_product_attention`` (timed
+     only; the port never calls it), and the float32 kernels at the same
+     shapes (cast), held to the float32 bar and timed the same way;
   9. one prefill of each model under ``torch.profiler``: idle share and
      top device kernels.
 
@@ -69,10 +74,12 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet: HBM3 rate; float64 outside the tensor cores
 # (the forest kernels compare and add in float64); dense bf16 on the tensor
-# cores (the LM kernels' inputs are bf16 on the main path)
+# cores (the LM kernels' inputs are bf16 on the main path); float32 outside
+# the tensor cores (the LM kernels' float32 route)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
 LM_BATCH, LM_SEQ = 4, 2048
 KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan")
 RTOL_CARD_VS_CPU = 1e-5
@@ -194,10 +201,17 @@ def replay_once(svc, reqs) -> dict:
             "requests_per_s": len(lat) / wall}
 
 
+# the device functions of src/repro_torch/csrc, as the profiler names them
+REPO_KERNELS = ("leaves_grouped_kernel", "leaves_single_kernel",
+                "tree_mean_kernel", "flash_fwd_kernel", "flash_bf16_kernel",
+                "ssd_scan_kernel", "ssd_states_kernel",
+                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+
+
 def traced(torch, run) -> dict:
     """``run()`` under ``torch.profiler``: the share of its wall time the
-    card spent running kernels, and the kernels that took the most device
-    time."""
+    card spent running kernels, the kernels that took the most device
+    time, and the device time of each of the repo's own kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -216,7 +230,12 @@ def traced(torch, run) -> dict:
             "device_idle_share": 1.0 - busy_us / wall_us if kernels else None,
             "top_kernels": [{"name": e.key[:60], "calls": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+                            for e in top],
+            "repo_kernels": {
+                name: {"calls": e.count,
+                       "device_ms": e.self_device_time_total / 1e3}
+                for e in kernels for name in REPO_KERNELS
+                if f"{name}<" in e.key or f"{name}(" in e.key}}
 
 
 def traced_replay(torch, svc, reqs) -> dict:
@@ -464,10 +483,23 @@ def lm_serve(torch, np, arch, cfg, model, args) -> dict:
     return rep
 
 
+def sass_hmma(name) -> int:
+    """Tensor-core (``HMMA``) instructions in the SASS of the library built
+    from ``csrc/<name>.cu``, read with the toolkit's ``cuobjdump``."""
+    from repro_torch.kernels import _build
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
 def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
     """Phase 8: each kernel against its plain version at the main path's
-    inputs and at random shapes. Returns (max abs error at the main path's
-    inputs per kernel, the cases checked)."""
+    inputs and at random shapes, bf16 launches repeatable bit for bit, and
+    tensor-core instructions in the SASS. Returns (max abs error at the
+    main path's inputs per kernel, the cases checked, HMMA counts)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     rng = np.random.default_rng(1)
@@ -486,7 +518,10 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
     for B, S, H, KV, D, dt in [(2, 512, 32, 8, 64, torch.float32),
                                (2, 300, 8, 1, 128, torch.bfloat16),
                                (1, 1024, 16, 16, 128, torch.bfloat16),
-                               (1, 300, 4, 2, 64, torch.float32)]:
+                               (1, 300, 4, 2, 64, torch.float32),
+                               (1, 1000, 8, 2, 16, torch.bfloat16),
+                               (2, 300, 4, 4, 32, torch.bfloat16),
+                               (1, 1000, 8, 1, 64, torch.bfloat16)]:
         flash_sets.append((f"{(B, S, H, KV, D)} {dt}".replace("torch.", ""),
                            randn((B, S, H, D), dt), randn((B, S, KV, D), dt),
                            randn((B, S, KV, D), dt)))
@@ -508,7 +543,11 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
     for B, S, H, P, N, dt, chunk in [
             (2, 512, 8, 64, 128, torch.float32, 64),
             (1, 1024, 4, 64, 128, torch.bfloat16, 256),
-            (1, 192, 2, 32, 64, torch.float32, 64)]:
+            (1, 192, 2, 32, 64, torch.float32, 64),
+            (1, 512, 4, 32, 64, torch.bfloat16, 64),
+            (2, 512, 2, 128, 128, torch.bfloat16, 128),
+            (1, 4096, 2, 64, 128, torch.bfloat16, 256),
+            (1, 4096, 1, 128, 64, torch.bfloat16, 256)]:
         ssd_sets.append((
             f"{(B, S, H, P, N)} {dt} chunk {chunk}".replace("torch.", ""),
             randn((B, S, H, P), dt),
@@ -528,12 +567,31 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
                       "max_abs_ref": scale, "ok": ok})
         check(ok, f"ssd_scan kernel equals its plain version, {name} (max "
               f"abs err {e:.3e}, max |ref| {scale:.3f})")
-    return errs, cases
+
+    # no atomics and a fixed order of every sum: the same bits twice
+    (q, k, v), _ = flash_in
+    check(torch.equal(fa_mod.flash_attention(q, k, v, backend="cuda"),
+                      fa_mod.flash_attention(q, k, v, backend="cuda")),
+          "flash_attention: two bf16 launches at the main path's inputs "
+          "give the same bits")
+    (X, Adt, Bc, Cc), kw = ssd_in
+    check(torch.equal(
+        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"], backend="cuda"),
+        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"], backend="cuda")),
+        "ssd_scan: two bf16 launches at the main path's inputs give the "
+        "same bits")
+
+    hmma = {n: sass_hmma(n) for n in ("flash_attention", "ssd_scan")}
+    for n, count in hmma.items():
+        check(count > 0, f"{n}.cu SASS holds {count} HMMA (tensor-core) "
+              f"instructions")
+    return errs, cases, hmma
 
 
-def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs) -> list:
+def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
     """The LM kernels' lines: times at the main path's inputs beside their
-    bounds, their plain versions' times and SDPA's."""
+    bounds (at the peak of the inputs' dtype), their plain versions' times
+    and SDPA's."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -557,7 +615,8 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs) -> list:
                                   backend="torch"),
          None, ssd_work(X, Bc, chunk), "src/repro/kernels/ssd_scan.py:70"),
     ]:
-        b_ms, b_by = bound_ms(*work, ops_per_s=BF16_OPS_PER_S)
+        b_ms, b_by = bound_ms(*work, ops_per_s=(
+            BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S))
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
@@ -567,9 +626,40 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs) -> list:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": (time_kernel_ms(torch, lib, iters=20)
                            if lib is not None else None)})
-        print(f"{name}: {json.dumps(rows[-1])} (bytes {work[0]}, "
+        print(f"{name}{tag}: {json.dumps(rows[-1])} (bytes {work[0]}, "
               f"operations {work[1]})")
     return rows
+
+
+def lm_f32_rows(torch, flash_in, ssd_in) -> list:
+    """The float32 route (CUDA-core kernels) at the main path's shapes: the
+    same inputs cast to float32, held against the plain versions at the
+    float32 bar, and lines as ``lm_kernel_rows`` makes them (no launch on
+    the main path, which is bf16)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    (q, k, v), _ = flash_in
+    (X, Adt, Bc, Cc), kw = ssd_in
+    q, k, v, X, Bc, Cc = (t.float() for t in (q, k, v, X, Bc, Cc))
+    errs = {}
+    for name, run, scale in [
+            ("flash_attention",
+             lambda b: fa_mod.flash_attention(q, k, v, backend=b), False),
+            ("ssd_scan",
+             lambda b: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"],
+                                        backend=b), True)]:
+        got, want = run("cuda"), run("torch")
+        torch.cuda.synchronize()
+        errs[name] = float((got - want).abs().max())
+        div = float(want.abs().max()) if scale else 1.0
+        check(bool(torch.allclose(got / div, want / div, atol=2e-5,
+                                  rtol=1e-4)),
+              f"{name} float32 kernel equals its plain version at the main "
+              f"path's shapes (max abs err {errs[name]:.3e})")
+    return lm_kernel_rows(torch, ((q, k, v), {}), ((X, Adt, Bc, Cc), kw),
+                          {"flash_attention": 0, "ssd_scan": 0}, errs,
+                          tag=" (float32)")
 
 
 def lm_phases(torch, np, args, dev, report) -> list:
@@ -583,11 +673,15 @@ def lm_phases(torch, np, args, dev, report) -> list:
     report["lm_serve"] = {k: lm_serve(torch, np, r["cfg"].name, r["cfg"],
                                       r["model"], args)
                           for k, r in runs.items()}
-    errs, cases = lm_kernel_checks(torch, np, runs["flash_attention"]["seen"],
-                                   runs["ssd_scan"]["seen"], dev)
+    errs, cases, hmma = lm_kernel_checks(
+        torch, np, runs["flash_attention"]["seen"], runs["ssd_scan"]["seen"],
+        dev)
     report["lm_kernel_cases"] = cases
+    report["sass_hmma"] = hmma
     rows = lm_kernel_rows(torch, runs["flash_attention"]["seen"],
                           runs["ssd_scan"]["seen"], counts, errs)
+    report["lm_f32_kernels"] = lm_f32_rows(
+        torch, runs["flash_attention"]["seen"], runs["ssd_scan"]["seen"])
     report["lm_trace"] = {}
     for k, r in runs.items():
         tr = traced(torch, lambda: r["step"](r["model"], r["batch"]))

@@ -2,8 +2,9 @@
 with ``ctypes``, and the dispatch every kernel wrapper shares.
 
 The library is built at first use into ``<checkout>/build/kernels/``. Its
-file name carries a hash of the source and the compiler flags, so a stale
-``.so`` is never loaded: editing the source builds a new one. The build
+file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
+and the compiler flags, so a stale ``.so`` is never loaded: editing the
+source or a header builds a new one. The build
 writes to a temporary name and renames it into place, so a concurrent or
 interrupted build never leaves a half-written library under the final
 name. :func:`build_all` runs one ``nvcc`` per source, all at once.
@@ -57,8 +58,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built; the
+    hash covers the source, every ``csrc/*.cuh`` header and the flags."""
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -123,6 +126,23 @@ def use_kernel(x: torch.Tensor, backend: str, module: str) -> bool:
     if backend == "torch":
         return False
     raise ValueError(f"unknown {module} backend {backend!r}")
+
+
+def check_16_byte_rows(*named: tuple) -> None:
+    """Raise unless each ``(name, tensor)`` starts on 16 bytes and its
+    strides other than the last (of dimensions longer than 1) are multiples
+    of 16 bytes: the bfloat16 kernels copy their rows into shared memory 16
+    bytes at a time."""
+    for name, t in named:
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                st % step for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(
+                f"the bfloat16 kernel copies rows of {name} 16 bytes at a "
+                f"time: it must start on 16 bytes with strides that are "
+                f"multiples of {step} elements; got strides {t.stride()} "
+                f"(.contiguous() gives such a tensor)")
 
 
 def raise_on(rc: int, fn: str) -> None:

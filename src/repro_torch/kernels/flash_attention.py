@@ -8,8 +8,12 @@ kernel, :74). q is ``(B, S, H, D)``, k and v ``(B, S, KV, D)`` with
 softmax and accumulator in float32. The kernel reads the three operands
 through their strides (only the last dimension must be contiguous) and
 takes any S; it is built for D in :data:`HEAD_DIMS` and float32 or
-bfloat16 inputs. The plain version is ``flash_attention_ref``
-(materialized f32 scores, ``tril`` mask, softmax, P.V).
+bfloat16 inputs. bfloat16 runs on the tensor cores and rounds the
+probabilities to bfloat16 before P.V, as the reference model does; its
+operands must start on 16 bytes with strides that are multiples of 8
+elements. float32 runs on the CUDA cores. The plain version is
+``flash_attention_ref`` (materialized f32 scores, ``tril`` mask, softmax,
+P.V).
 
 Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it.
 """
@@ -46,10 +50,13 @@ def library() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Shared memory of one block of the kernel (its ``smem_floats``): q and
-    k tiles with rows padded to D + 4 floats, the v tile and the
-    probabilities, all float32."""
+def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one block of the kernel for ``dtype``. bfloat16
+    (``smem_bf16_elems``): the q tile and two stages of k and v tiles, bf16
+    rows padded by 8. float32 (``smem_floats``): q and k tiles with rows
+    padded to D + 4 floats, the v tile and the probabilities."""
+    if dtype == torch.bfloat16:
+        return 2 * 5 * BLOCK_Q * (head_dim + 8)
     return 4 * (2 * BLOCK_Q * (head_dim + 4) + BLOCK_KV * head_dim
                 + BLOCK_Q * BLOCK_KV)
 
@@ -76,6 +83,8 @@ def _check(q, k, v) -> None:
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the kernel reads q, k, v with a contiguous last "
                          "dimension")
+    if q.dtype == torch.bfloat16:
+        _build.check_16_byte_rows(("q", q), ("k", k), ("v", v))
 
 
 def flash_attention(q, k, v, *, backend: str = "auto") -> torch.Tensor:

@@ -10,6 +10,16 @@ not returned. ``S % chunk == 0`` with ``chunk = min(chunk, S)``. The kernel
 is built for P in :data:`HEAD_DIMS`, N a multiple of 16 up to 128, and
 float32 or bfloat16 X, Bc, Cc of one dtype.
 
+bfloat16 runs three launches, parallel over chunks, on the tensor cores:
+the chunks' state contributions into a float32 scratch buffer
+(:func:`scratch_bytes`, allocated here), a pass over the chunks that turns
+them into the state entering each chunk, and the chunks' outputs; X, Bc
+and Cc must start on 16 bytes with strides that are multiples of 8
+elements. It rounds ``x * decay``, the decayed scores and the incoming
+state to bfloat16 as the products' operands. float32 runs one launch per
+call on the CUDA cores, one block per (b, h) walking its chunks in order.
+Either way a call counts one launch of ``ssd_scan``.
+
 The plain version is :func:`ssd_chunked`, the port of
 ``repro.models.ssm.ssd_chunked`` (the chunked einsum form the model runs);
 ``repro_torch.kernels.ref.ssd_scan_ref`` (the sequential recurrence) is
@@ -38,6 +48,15 @@ _SIGNATURES = {
     # X, Adt, Bc, Cc, Y, B, S, H, P, N, Q, strides[10], dtype, stream
     "ssd_scan_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    # X, Adt, Bc, states, decay, B, S, H, P, N, Q, strides[10], stream
+    "ssd_chunk_states_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
+    + [ctypes.c_void_p, ctypes.c_void_p],
+    # states, decay, B * H, chunks, P * N, stream
+    "ssd_state_pass_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p],
+    # X, Adt, Bc, Cc, states, Y, B, S, H, P, N, Q, strides[10], stream
+    "ssd_chunk_scan_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6
+    + [ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
@@ -50,13 +69,34 @@ def library() -> ctypes.CDLL:
     return _build.load("ssd_scan", _SIGNATURES)
 
 
-def smem_bytes(chunk: int, head_dim: int, state: int) -> int:
-    """Shared memory of one block of the kernel (its ``smem_floats``): the
-    (P, N) state and the C and B tiles with rows padded to N + 1 floats,
-    the chunk's cumsum, the X tile and the 64 x 65 score tile, all
-    float32. At mamba2-130m (Q, P, N) = (256, 64, 128) it is 133,120 B."""
-    return 4 * (head_dim * (state + 1) + chunk + 2 * TILE * (state + 1)
-                + TILE * head_dim + TILE * (TILE + 1))
+def smem_bytes(chunk: int, head_dim: int, state: int,
+               dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of the largest block of the kernel for ``dtype``.
+
+    bfloat16: the larger of the chunk-state pass (``states_smem_bytes``)
+    and the chunk-scan pass (``scan_smem_bytes``): the C tile and two
+    stages of B and X tiles in bf16 with rows padded by 8 (the (P, N)
+    incoming state borrows the second stage), then the chunk's cumsum and
+    4 warp totals in f32; 71,696 B at mamba2-130m (Q, P, N) = (256, 64,
+    128). float32 (``smem_floats``): the (P, N) state and the C and B tiles
+    with rows padded to N + 1 floats, the chunk's cumsum, the X tile and
+    the 64 x 65 score tile, 133,120 B there."""
+    P, N, Q = head_dim, state, chunk
+    if dtype == torch.bfloat16:
+        states = 2 * 2 * TILE * (min(P, TILE) + 8 + N + 8) + 4 * (Q + 4)
+        scan = 2 * (3 * TILE * (N + 8) + 2 * TILE * (P + 8)) + 4 * (Q + 4)
+        return max(states, scan)
+    return 4 * (P * (N + 1) + Q + 2 * TILE * (N + 1) + TILE * P
+                + TILE * (TILE + 1))
+
+
+def scratch_bytes(batch: int, seq: int, heads: int, chunk: int,
+                  head_dim: int, state: int) -> int:
+    """Device memory the bfloat16 kernel's wrapper allocates per call: the
+    float32 (B, H, S / Q, P, N) chunk states and (B, H, S / Q) chunk decays
+    (25,168,896 B at the mamba2-130m prefill (4, 2048, 24, 256, 64,
+    128))."""
+    return 4 * batch * heads * (seq // chunk) * (head_dim * state + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +193,13 @@ def _check(X, Adt, Bc, Cc, chunk: int) -> None:
     if any(t.stride(-1) != 1 for t in (X, Adt, Bc, Cc)) and B * S:
         raise ValueError("the kernel reads X, Adt, Bc, Cc with a contiguous "
                          "last dimension")
-    if smem_bytes(chunk, P, N) > _build.SMEM_PER_BLOCK:
-        raise ValueError(f"chunk {chunk} at P={P}, N={N} needs "
-                         f"{smem_bytes(chunk, P, N)} B of shared memory; a "
-                         f"block may use {_build.SMEM_PER_BLOCK}")
+    smem = smem_bytes(chunk, P, N, X.dtype)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"chunk {chunk} at P={P}, N={N} needs {smem} B of "
+                         f"shared memory; a block may use "
+                         f"{_build.SMEM_PER_BLOCK}")
+    if X.dtype == torch.bfloat16 and B * S:
+        _build.check_16_byte_rows(("X", X), ("Bc", Bc), ("Cc", Cc))
 
 
 def ssd_scan(X, Adt, Bc, Cc, *, chunk: int = DEFAULT_CHUNK,
@@ -174,14 +217,32 @@ def ssd_scan(X, Adt, Bc, Cc, *, chunk: int = DEFAULT_CHUNK,
     Y = torch.empty((B, S, H, P), dtype=X.dtype, device=X.device)
     if Y.numel() == 0:
         return Y
+    N = Bc.shape[-1]
     strides = (ctypes.c_longlong * 10)(*X.stride()[:3], *Adt.stride(),
                                        *Bc.stride()[:2], *Cc.stride()[:2])
     with torch.cuda.device(X.device):
-        rc = library().ssd_scan_fwd(
-            X.data_ptr(), Adt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-            Y.data_ptr(), B, S, H, P, Bc.shape[-1], chunk, strides,
-            _build.DTYPE_CODES[X.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.raise_on(rc, "ssd_scan_fwd")
+        lib, stream = library(), torch.cuda.current_stream().cuda_stream
+        if X.dtype == torch.bfloat16:
+            nc = S // chunk
+            states = torch.empty((B, H, nc, P, N), dtype=torch.float32,
+                                 device=X.device)
+            decay = torch.empty((B, H, nc), dtype=torch.float32,
+                                device=X.device)
+            _build.raise_on(lib.ssd_chunk_states_fwd(
+                X.data_ptr(), Adt.data_ptr(), Bc.data_ptr(),
+                states.data_ptr(), decay.data_ptr(), B, S, H, P, N, chunk,
+                strides, stream), "ssd_chunk_states_fwd")
+            _build.raise_on(lib.ssd_state_pass_fwd(
+                states.data_ptr(), decay.data_ptr(), B * H, nc, P * N,
+                stream), "ssd_state_pass_fwd")
+            _build.raise_on(lib.ssd_chunk_scan_fwd(
+                X.data_ptr(), Adt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                states.data_ptr(), Y.data_ptr(), B, S, H, P, N, chunk,
+                strides, stream), "ssd_chunk_scan_fwd")
+        else:
+            _build.raise_on(lib.ssd_scan_fwd(
+                X.data_ptr(), Adt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                Y.data_ptr(), B, S, H, P, N, chunk, strides,
+                _build.DTYPE_CODES[X.dtype], stream), "ssd_scan_fwd")
     launches["ssd_scan"] += 1
     return Y

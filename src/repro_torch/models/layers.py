@@ -143,12 +143,16 @@ def causal_attention(q, k, v, *, backend: str = "auto"):
     """Causal GQA attention through the flash-attention kernel (its plain
     version on the CPU). q: (B,S,H,hd); k, v: (B,S,KV,hd).
 
-    The reference has two regimes: ``_sdpa`` for S <= 1024, which rounds
-    the probabilities to the activations' dtype before P.V, and
-    online-softmax blocks above. The kernel serves any S and keeps the
-    probabilities in float32, as the Pallas kernel does, so in bfloat16
+    The reference has two regimes, ``_sdpa`` for S <= 1024 and
+    online-softmax blocks above; both round the probabilities to the
+    activations' dtype before P.V (the normalised ones in ``_sdpa``, the
+    unnormalised ones of each block in the blocked path). The kernel
+    serves any S; in bfloat16 it rounds the unnormalised probabilities of
+    each 64-key tile to bfloat16 before P.V, as the blocked path does, and
+    keeps the row sum and accumulator in float32. The plain version (and
+    the Pallas kernel) keep the probabilities in float32, so in bfloat16
     the port differs from the reference's ``forward`` by more than
-    rounding noise; in float32 the two agree."""
+    rounding noise; in float32 all agree."""
     return ops.flash_attention(q, k, v, backend=backend)
 
 

@@ -108,9 +108,26 @@ def test_kernel_inputs_are_checked(shapes, dtype, match):
 
 def test_smem_budgets_fit_hopper():
     """The shared memory of one block fits the 227 KB a block may use on
-    Hopper at every head dim the kernel is built for (the reference's
-    ``vmem_bytes_attention`` check, for the card)."""
-    for d in fa.HEAD_DIMS:
-        assert fa.smem_bytes(d) <= _build.SMEM_PER_BLOCK
+    Hopper at every head dim and dtype the kernel is built for (the
+    reference's ``vmem_bytes_attention`` check, for the card)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fa.HEAD_DIMS:
+            assert fa.smem_bytes(d, dtype) <= _build.SMEM_PER_BLOCK
     # llama3.2-1b: D = 64, three blocks of 128 threads fit on one SM
     assert 3 * fa.smem_bytes(64) <= 228 * 1024
+    # bf16: the q tile and two stages of k and v tiles, rows of 64 + 8
+    assert fa.smem_bytes(64) == 46_080
+    assert fa.smem_bytes(64, torch.float32) == 67_584
+
+
+def test_bf16_rows_must_be_16_byte_aligned():
+    """The bf16 kernel copies rows 16 bytes at a time: a view whose strides
+    are not multiples of 8 elements raises before any launch (float32,
+    which the CUDA-core kernel reads element by element, does not)."""
+    k = torch.zeros((1, 64, 2, 16))
+    fa._check(torch.zeros((1, 64, 4, 17))[..., :16], k, k)
+    q = torch.zeros((1, 64, 4, 17), dtype=torch.bfloat16)[..., :16]
+    k = k.bfloat16()
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._check(q, k, k)
+    fa._check(q.contiguous(), k, k)

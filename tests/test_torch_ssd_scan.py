@@ -129,8 +129,34 @@ def test_kernel_inputs_are_checked(P, N, dtype, chunk, match):
 
 
 def test_smem_budget_fits_hopper():
-    """The reference's ``vmem_bytes_ssd`` check, for the card: the block's
-    shared memory at mamba2-130m (chunk 256, P 64, N 128) and at the
-    largest P and N the kernel takes fits the 227 KB a block may use."""
-    assert ssd.smem_bytes(256, 64, 128) == 133_120
-    assert ssd.smem_bytes(256, 128, 128) <= _build.SMEM_PER_BLOCK
+    """The reference's ``vmem_bytes_ssd`` check, for the card: the largest
+    block's shared memory at mamba2-130m (chunk 256, P 64, N 128) and at
+    every P, N and chunk the model configs and tests build fits the 227 KB
+    a block may use, for both dtypes."""
+    assert ssd.smem_bytes(256, 64, 128) == 71_696
+    assert ssd.smem_bytes(256, 64, 128, torch.float32) == 133_120
+    for dtype in (torch.bfloat16, torch.float32):
+        for P in ssd.HEAD_DIMS:
+            for N in (16, 32, 64, 128):
+                for chunk in (32, 64, 128, 256):
+                    assert ssd.smem_bytes(chunk, P, N, dtype) \
+                        <= _build.SMEM_PER_BLOCK
+
+
+def test_scratch_bytes_at_mamba2_130m():
+    """The bf16 kernel's float32 scratch at the mamba2-130m prefill (4,
+    2048) tokens, chunk 256: (B, H, S / Q, P, N) chunk states and (B, H,
+    S / Q) chunk decays, 25.2 MB."""
+    assert ssd.scratch_bytes(4, 2048, 24, 256, 64, 128) == 25_168_896
+    assert ssd.scratch_bytes(1, 256, 1, 256, 16, 16) == 4 * (16 * 16 + 1)
+
+
+def test_bf16_rows_must_be_16_byte_aligned():
+    """The bf16 kernel copies rows of X, Bc and Cc 16 bytes at a time: a
+    view whose strides are not multiples of 8 elements raises."""
+    X = torch.zeros((1, 64, 2, 16), dtype=torch.bfloat16)
+    Adt = torch.zeros((1, 64, 2))
+    Bc = torch.zeros((1, 64, 20), dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd._check(X, Adt, Bc, Bc, 64)
+    ssd._check(X, Adt, Bc.contiguous(), Bc.contiguous(), 64)
