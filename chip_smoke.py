@@ -15,11 +15,18 @@ seed 0) on the card, then
   1. serves the ``synthetic_requests`` stream twice through
      ``LatencyService`` (waves of 64; banked: one grouped forest launch per
      wave) and one wave through the per-group path (single-forest kernel);
-  2. holds each forest kernel against its plain PyTorch version on the
-     card, at the shapes the serving run gave it and on random forests
-     (max abs difference must be 0), and times both, and the one PyTorch
-     call that computes the same function where there is one (``mean(0)``
-     for the tree mean; none computes a forest traversal);
+  2. holds each forest kernel, both traversals by both of their routes
+     (shared memory, the one the serving run takes, and global), against
+     its plain PyTorch version on the card (max abs difference must be 0,
+     NaN where the plain version has NaN): at the shapes the serving run
+     gave it, on random ragged forests with a depth-0 group, with
+     out-of-range group ids, with groups left out, at 1 row and at 4,096
+     rows drawn from the served waves; times every route at the serving
+     shapes and both in turns at 512 to 4,096 rows (and says which one
+     the wrapper takes there: the shared route only while its grid fits
+     the card in one round), the plain versions,
+     and the one PyTorch call that computes the same function where there
+     is one (``mean(0)`` for the tree mean; none traverses a forest);
   3. holds the card's answers for one wave against the same model run with
      ``device="cpu"`` (rtol 1e-5, the float32 DNN member's bar);
   4. replays the stream once more through a fresh service under
@@ -202,8 +209,9 @@ def replay_once(svc, reqs) -> dict:
 
 
 # the device functions of src/repro_torch/csrc, as the profiler names them
-REPO_KERNELS = ("leaves_grouped_kernel", "leaves_single_kernel",
-                "tree_mean_kernel", "flash_fwd_kernel", "flash_bf16_kernel",
+REPO_KERNELS = ("leaves_tile_kernel", "leaves_grouped_kernel",
+                "leaves_single_kernel", "tree_mean_kernel",
+                "flash_fwd_kernel", "flash_bf16_kernel",
                 "ssd_scan_kernel", "ssd_states_kernel",
                 "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 
@@ -243,6 +251,14 @@ def traced_replay(torch, svc, reqs) -> dict:
     for r in reqs:
         svc.submit(r)
     return traced(torch, svc.run)
+
+
+FOREST_KERNELS = REPO_KERNELS[:4]
+ROUTES = ("shared", "global")
+LARGE_WAVE = 4096
+# waves of rows drawn from the served ones at which both traversal routes
+# are timed beside each other
+WAVE_SIZES = (512, 1024, 2048, LARGE_WAVE)
 
 
 def bound_ms(nbytes, ops, ops_per_s=FP64_OPS_PER_S):
@@ -780,13 +796,15 @@ def main(argv=None) -> int:
     check(bank.forest_launches == s.fused_calls == len(waves) > 0,
           f"one grouped forest launch per banked wave "
           f"({bank.forest_launches} launches, {s.fused_calls} banked waves)")
-    check(counts["leaf_values_grouped"] == len(waves),
-          f"grouped kernel launched once per banked wave "
-          f"({counts['leaf_values_grouped']})")
+    check(counts["leaf_values_grouped"] == len(waves)
+          and counts["leaf_values_grouped/global"] == 0,
+          f"grouped kernel launched once per banked wave, by the shared "
+          f"route ({counts['leaf_values_grouped']}; global "
+          f"{counts['leaf_values_grouped/global']})")
     check(not per_group.banked and counts["leaf_values"]
-          == per_group.fused_calls > 0,
-          f"per-group wave launched the single-forest kernel once per pair "
-          f"({counts['leaf_values']} launches)")
+          == per_group.fused_calls > 0 and counts["leaf_values/global"] == 0,
+          f"per-group wave launched the single-forest kernel once per pair, "
+          f"by the shared route ({counts['leaf_values']} launches)")
     check(counts["tree_mean"] == len(waves) + per_group.fused_calls,
           f"tree-mean kernel launched after every traversal "
           f"({counts['tree_mean']})")
@@ -809,70 +827,152 @@ def main(argv=None) -> int:
     print(f"kernel shapes: wave of {m} rows over {G} groups; per-group "
           f"{Xs.shape[0]} rows of pair {pair} (depth {depth1}); random "
           f"stack {tuple(rnd['feat'].shape)} depth {rnd['depth'].tolist()}")
+    D = X.shape[1]
+
+    def chosen(grouped_, n):
+        """The plan the wrapper takes for n rows, or None (global route)."""
+        return forest_eval.route_plan(
+            G if grouped_ else 1, T, N, n, D,
+            lambda smem: forest_eval.resident_blocks(grouped_, smem, dev))
+
+    plans = {"grouped": chosen(True, m), "single": chosen(False, Xs.shape[0])}
+    shown = {k: (tuple(p), forest_eval.resident_blocks(k == "grouped",
+                                                        p.smem, dev))
+             for k, p in plans.items() if p is not None}
+    check(len(shown) == 2,
+          f"the serving shapes take the shared route (R rows a tile, B a "
+          f"batch, smem bytes; blocks resident on the card): {shown}")
 
     def max_err(a, b):
-        return float((a - b).abs().max()) if a.numel() else 0.0
+        """Max abs difference; NaN must meet NaN (else inf)."""
+        if not a.numel():
+            return 0.0
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("inf")
+        return float((a.nan_to_num() - b.nan_to_num()).abs().max())
 
-    def grouped(backend, x=X, g=gid, args=fa, depth=f["depth"]):
-        return forest_eval.leaf_values_grouped(x, g, *args, depth,
-                                               backend=backend)
+    def grouped(backend, x=X, g=gid, args=fa, depth=f["depth"], route=None):
+        """By the wrapper (route None), or by one route whatever the
+        shape."""
+        if route is None:
+            return forest_eval.leaf_values_grouped(x, g, *args, depth,
+                                                   backend=backend)
+        if route == "global":
+            return forest_eval._leaf_values_grouped_global(x, g, *args,
+                                                           depth)
+        plan = forest_eval.tile_plan(args[0].shape[0], *args[0].shape[1:],
+                                     *x.shape)
+        return forest_eval._leaf_values_grouped_shared(x, g, *args, depth,
+                                                       plan)
 
-    def single(backend, x=Xs, args=sa, depth=depth1):
-        return forest_eval.leaf_values(x, *args, depth=depth,
-                                       backend=backend)
+    def single(backend, x=Xs, args=sa, depth=depth1, route=None):
+        if route is None:
+            return forest_eval.leaf_values(x, *args, depth=depth,
+                                           backend=backend)
+        if route == "global":
+            return forest_eval._leaf_values_global(x, *args, depth=depth)
+        plan = forest_eval.tile_plan(1, *args[0].shape, *x.shape)
+        return forest_eval._leaf_values_shared(x, *args, depth=depth,
+                                               plan=plan)
+
+    # rows of every served wave, drawn with their group ids into a wave of
+    # LARGE_WAVE rows spanning many row tiles
+    X_all = torch.from_numpy(np.concatenate([w[0] for w in waves])).to(dev)
+    g_all = torch.from_numpy(np.concatenate([w[1] for w in waves])).to(dev)
+    pick = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, X_all.shape[0], size=LARGE_WAVE)).to(dev)
+    X4k, g4k = X_all[pick].contiguous(), g_all[pick].contiguous()
+    bad = gid.clone()
+    bad[::5] = -1
+    bad[2::7] = G
+    bad[3::11] = G + 9
+    kept = gid % 3 == 0
+    kept_groups = sorted(set(gid[kept].tolist()))
+    grouped_cases = [
+        ("served wave", X, gid, fa, f["depth"]),
+        ("random ragged stack", Xr, gr, ra, rnd["depth"]),
+        ("out-of-range gids", X, bad, fa, f["depth"]),
+        (f"only groups {kept_groups} of {G}", X[kept].contiguous(),
+         gid[kept].contiguous(), fa, f["depth"]),
+        ("m = 1", X[:1], gid[:1], fa, f["depth"]),
+        (f"m = {LARGE_WAVE}", X4k, g4k, fa, f["depth"]),
+    ]
+    single_cases = [("served pair's rows", Xs, sa, depth1)] + [
+        (f"random forest {g} (depth {int(rnd['depth'][g])})", Xr,
+         tuple(a[g] for a in ra), int(rnd["depth"][g])) for g in range(4)] + [
+        ("m = 1", Xs[:1], sa, depth1),
+        (f"m = {LARGE_WAVE}", X4k, sa, depth1)]
+    errs = {}
+    for name, suffix in (("leaf_values_grouped", ""),
+                         ("leaf_values_grouped", "/global"),
+                         ("leaf_values", ""), ("leaf_values", "/global")):
+        route = "global" if suffix else "shared"
+        worst = 0.0
+        for case in (grouped_cases if name == "leaf_values_grouped"
+                     else single_cases):
+            run = grouped if name == "leaf_values_grouped" else single
+            e = max_err(run("cuda", *case[1:], route=route),
+                        run("torch", *case[1:]))
+            torch.cuda.synchronize()
+            check(e == 0.0, f"{name}{suffix} equals its plain version, "
+                  f"{case[0]} ({case[1].shape[0]} rows; max abs err {e})")
+            worst = max(worst, e)
+        errs[name + suffix] = worst
 
     leaves = grouped("cuda")
     cpu_leaves = forest_eval.leaf_values_grouped(
         X.cpu(), gid.cpu(), *(a.cpu() for a in fa), f["depth"].cpu())
-    errs = {
-        "leaf_values_grouped": max(
-            max_err(leaves, grouped("torch")),
-            max_err(leaves.cpu(), cpu_leaves),
-            max_err(grouped("cuda", Xr, gr, ra, rnd["depth"]),
-                    grouped("torch", Xr, gr, ra, rnd["depth"]))),
-        "leaf_values": max(
-            max_err(single("cuda"), single("torch")),
-            max(max_err(single("cuda", Xr, tuple(a[g] for a in ra),
-                               int(rnd["depth"][g])),
-                        single("torch", Xr, tuple(a[g] for a in ra),
-                               int(rnd["depth"][g]))) for g in range(4))),
-        "tree_mean": max(
-            max_err(forest_eval.tree_mean(leaves),
-                    forest_eval.tree_mean(leaves, backend="torch")),
-            max_err(forest_eval.tree_mean(leaves).cpu(),
-                    forest_eval.tree_mean(cpu_leaves))),
-    }
-    for name, e in errs.items():
-        check(e == 0.0, f"{name} kernel equals its plain version "
-              f"(max abs err {e})")
+    e = max_err(leaves.cpu(), cpu_leaves)
+    check(e == 0.0, f"leaf_values_grouped on the card equals the plain "
+          f"version on the CPU, served wave (max abs err {e})")
+    errs["leaf_values_grouped"] = max(errs["leaf_values_grouped"], e)
+    errs["tree_mean"] = max(
+        max_err(forest_eval.tree_mean(leaves),
+                forest_eval.tree_mean(leaves, backend="torch")),
+        max_err(forest_eval.tree_mean(leaves).cpu(),
+                forest_eval.tree_mean(cpu_leaves)))
+    check(errs["tree_mean"] == 0.0, f"tree_mean kernel equals its plain "
+          f"version (max abs err {errs['tree_mean']})")
 
-    path_g, cmp_g = path_bytes(torch, forest_eval, X, gid, *fa[:4],
-                               f["depth"])
-    path_s, cmp_s = path_bytes(
-        torch, forest_eval, Xs,
-        torch.zeros(Xs.shape[0], dtype=torch.int64, device=dev),
-        *(a[None] for a in sa[:4]),
-        torch.tensor([depth1], dtype=torch.int64, device=dev))
-    ms_s = Xs.shape[0]
-    # + gid and each used group's depth bound in, the (T, rows) leaves out
+    def grouped_work(x, g):
+        """(bytes, compares) of a grouped traversal: the path's reads, gid
+        and each used group's depth bound in, the (T, rows) leaves out."""
+        path, cmp = path_bytes(torch, forest_eval, x, g, *fa[:4], f["depth"])
+        n = x.shape[0]
+        return path + n * 8 + int(g.unique().numel()) * 8 + T * n * 8, cmp
+
+    def single_work(x):
+        path, cmp = path_bytes(
+            torch, forest_eval, x,
+            torch.zeros(x.shape[0], dtype=torch.int64, device=dev),
+            *(a[None] for a in sa[:4]),
+            torch.tensor([depth1], dtype=torch.int64, device=dev))
+        return path + T * x.shape[0] * 8, cmp
+
+    work_g, work_s = grouped_work(X, gid), single_work(Xs)
     work = {
-        "leaf_values_grouped": (
-            path_g + m * 8 + int(gid.unique().numel()) * 8 + T * m * 8,
-            cmp_g),
-        "leaf_values": (path_s + T * ms_s * 8, cmp_s),
+        "leaf_values_grouped": work_g, "leaf_values_grouped/global": work_g,
+        "leaf_values": work_s, "leaf_values/global": work_s,
         "tree_mean": (T * m * 8 + m * 8, T * m + m),
     }
     timed = {
         "leaf_values_grouped": (lambda: grouped("cuda"),
                                 lambda: grouped("torch")),
+        "leaf_values_grouped/global": (lambda: grouped("cuda",
+                                                       route="global"),
+                                       lambda: grouped("torch")),
         "leaf_values": (lambda: single("cuda"), lambda: single("torch")),
+        "leaf_values/global": (lambda: single("cuda", route="global"),
+                               lambda: single("torch")),
         "tree_mean": (lambda: forest_eval.tree_mean(leaves),
                       lambda: forest_eval.tree_mean(leaves,
                                                     backend="torch")),
     }
     meta = {
         "leaf_values_grouped": "src/repro/kernels/forest_eval.py:217",
+        "leaf_values_grouped/global": "src/repro/kernels/forest_eval.py:217",
         "leaf_values": "src/repro/kernels/forest_eval.py:158",
+        "leaf_values/global": "src/repro/kernels/forest_eval.py:158",
         "tree_mean": "src/repro/kernels/forest_eval.py:38",
     }
     # one PyTorch call for the same function, timed as a yardstick only;
@@ -897,6 +997,37 @@ def main(argv=None) -> int:
         print(f"{name}: {json.dumps(kernels[-1])}")
     report["work"] = {k: {"bytes": v[0], "ops": v[1]} for k, v in work.items()}
 
+    # both routes at larger waves, over the bank and through one forest,
+    # and the one the wrapper takes there
+    large = {"leaf_values_grouped": {}, "leaf_values": {}}
+    for n in WAVE_SIZES:
+        xn, gn = X4k[:n].contiguous(), g4k[:n].contiguous()
+        for name, work_l, runs, grouped_ in [
+                ("leaf_values_grouped", grouped_work(xn, gn),
+                 {r: (lambda r=r: grouped("cuda", xn, gn, route=r))
+                  for r in ROUTES}, True),
+                ("leaf_values", single_work(xn),
+                 {r: (lambda r=r: single("cuda", xn, route=r))
+                  for r in ROUTES}, False)]:
+            b_ms, b_by = bound_ms(*work_l)
+            # in turns (shared, global, global, shared); the mean of each
+            order = ("shared", "global", "global", "shared")
+            t = [time_kernel_ms(torch, runs[r], iters=50) for r in order]
+            sh, gl = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            plan = forest_eval.tile_plan(G if grouped_ else 1, T, N, n, D)
+            large[name][n] = {
+                "shared_ms": sh, "global_ms": gl,
+                "shared_over_global": sh / gl, "bound_ms": b_ms,
+                "bound_by": b_by, "plan": list(plan),
+                "blocks": T * (G if grouped_ else 1) * -(-n // plan.R),
+                "resident": forest_eval.resident_blocks(grouped_, plan.smem,
+                                                        dev),
+                "taken": ("shared" if chosen(grouped_, n) is not None
+                          else "global"),
+                "turns_ms": t}
+            print(f"{name} at {n} rows: {json.dumps(large[name][n])}")
+    report["large_waves"] = large
+
     # -- 3. card against CPU, and the answers themselves ---------------------
     cpu_oracle = LatencyOracle(profet_from_numpy(
         profet_to_numpy(oracle.profet), device="cpu"), oracle.dataset)
@@ -920,6 +1051,11 @@ def main(argv=None) -> int:
 
     # -- 4. a traced replay: where the card's time goes ----------------------
     trace = traced_replay(torch, LatencyService(oracle, max_wave=64), reqs)
+    forest_ms = sum(v["device_ms"] for k, v in trace["repo_kernels"].items()
+                    if k in FOREST_KERNELS)
+    trace["forest_kernels_ms"] = forest_ms
+    trace["forest_share_of_busy"] = (forest_ms / trace["device_busy_ms"]
+                                     if trace["device_busy_ms"] else None)
     print(f"trace: {json.dumps(trace)}")
     report["trace"] = trace
 

@@ -2,8 +2,9 @@
 // kernels of flash_attention.cu and ssd_scan.cu (sm_80 instructions, all
 // available on sm_90a): 16-byte cp.async copies into shared memory,
 // ldmatrix loads of 8 x 8 bf16 tiles, and the m16n8k16 bf16 mma with f32
-// accumulation; and the host-side shared-memory opt-in of every launch in
-// both sources.
+// accumulation; the 4- and 8-byte cp.async copies with which
+// forest_eval.cu stages trees and rows; and the host-side shared-memory
+// opt-in of every launch in the three sources.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (lane = 4 g + t):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..2t+1),
@@ -40,6 +41,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 or 8 bytes from global to shared memory (cp.async.ca: copies this
+// small go through L1), for arrays that need not start on 16 bytes.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca of 4 or 8 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(kBytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,8 +1,8 @@
 """Packed-forest batch inference on the card: evaluate stacked CART forests
 over a block of rows in one launch.
 
-Three hand-written CUDA kernels (``repro_torch/csrc/forest_eval.cu``),
-each with a plain PyTorch version beside it and a launch counter:
+Hand-written CUDA kernels (``repro_torch/csrc/forest_eval.cu``), each
+with a plain PyTorch version beside it and launch counters:
 
   - :func:`leaf_values_grouped` — a stack of forests ``(G, T, N)``, every
     row routed through its own group's forest (``gid``) for at most that
@@ -14,6 +14,27 @@ each with a plain PyTorch version beside it and a launch counter:
   - :func:`tree_mean` — the float64 mean over the tree axis, trees summed
     in order so a row's answer never depends on the other rows in the
     batch (``np.mean`` and ``torch.sum(dim=0)`` do not fix the order).
+
+Each traversal has two kernel routes, chosen by shape alone
+(:func:`route_plan`):
+
+  - shared (``leaves_tile_kernel``): one block per (tree, group, tile of
+    :func:`tile_rows` rows) selects its group's rows of the tile, stages
+    the tree and those rows in shared memory with ``cp.async`` and routes
+    each row there. Taken where a tree and one row fit a block's shared
+    memory (:func:`smem_bytes` against ``_build.SMEM_PER_BLOCK``) and the
+    grid fits the card in one round of resident blocks
+    (:func:`resident_blocks`), as for every serving wave of the paper
+    grid.
+  - global (``leaves_grouped_kernel`` / ``leaves_single_kernel``): one
+    thread per (tree, row) walking out of L2; for a tree too large for
+    shared memory or a wave too large for one round, where every block of
+    the shared route would stage its tree and rows again.
+
+Either route is one launch per call, counted under the traversal's name
+(``"leaf_values_grouped"``, ``"leaf_values"``) or, for the global route,
+that name + ``"/global"``. ``chip_smoke.py`` and the card tests compare
+the two by calling each route's private launcher.
 
 Routing compares in float64, so both traversals are bitwise equal to the
 reference's production path (``leaf_values_grouped_numpy`` /
@@ -28,23 +49,42 @@ version.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
-# launches of each kernel in this process (the plain versions count none)
-launches: Dict[str, int] = {"leaf_values_grouped": 0, "leaf_values": 0,
+# launches of each kernel route in this process (the plain versions count
+# none)
+launches: Dict[str, int] = {"leaf_values_grouped": 0,
+                            "leaf_values_grouped/global": 0,
+                            "leaf_values": 0, "leaf_values/global": 0,
                             "tree_mean": 0}
 
+# threads of a block of the shared route: the most rows one batch routes
+TILE_THREADS = 128
+# tile_rows stops growing at this many groups
+TILE_GROUPS_MAX = 16
+# the most blocks along the second and third grid dimensions
+GRID_YZ_MAX = 65_535
+
 _SIGNATURES = {
-    # X, gid, feat, thr, left, right, value, depth, G, m, D, T, N, leaves,
-    # stream
+    # X, gid, feat, thr, left, right, value, depth, G, m, D, T, N, R, B,
+    # smem, leaves, stream
     "forest_leaves_grouped": [ctypes.c_void_p] * 8
-    + [ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 2,
-    # X, feat, thr, left, right, value, depth, m, D, T, N, leaves, stream
+    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 2,
+    # X, feat, thr, left, right, value, depth, m, D, T, N, R, B, smem,
+    # leaves, stream
     "forest_leaves": [ctypes.c_void_p] * 6
+    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 2,
+    # grouped (0 or 1), smem, blocks out
+    "forest_tile_blocks_per_sm": [ctypes.c_longlong, ctypes.c_longlong,
+                                  ctypes.POINTER(ctypes.c_int)],
+    # the global route: the same as the shared one without R, B and smem
+    "forest_leaves_grouped_global": [ctypes.c_void_p] * 8
+    + [ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 2,
+    "forest_leaves_global": [ctypes.c_void_p] * 6
     + [ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 2,
     # leaves, T, m, out, stream
     "forest_tree_mean": [ctypes.c_void_p, ctypes.c_longlong,
@@ -87,6 +127,113 @@ def _check_forest(X, feat, thr, left, right, value, lead: tuple) -> None:
     _check("left", left, torch.int32, shape, dev)
     _check("right", right, torch.int32, shape, dev)
     _check("value", value, torch.float64, shape, dev)
+
+
+# ---------------------------------------------------------------------------
+# the choice of route
+# ---------------------------------------------------------------------------
+
+
+class TilePlan(NamedTuple):
+    """Launch shape of the shared route: ``R`` rows per tile, ``B`` rows
+    staged and routed per batch (grid ``(T, G, ceil(m / R))``) and ``smem``
+    bytes of dynamic shared memory per block."""
+    R: int
+    B: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_rows(G: int) -> int:
+    """The most rows one tile of the shared route holds: 128 per group, up
+    to 16 groups. With a wave's rows spread over its groups a block then
+    selects up to about 128 rows."""
+    return TILE_THREADS * min(max(G, 1), TILE_GROUPS_MAX)
+
+
+def smem_bytes(N: int, D: int, L: int, B: int) -> int:
+    """Shared memory of one block of the shared route: the tree (feat,
+    left, right int32; thr, value float64: 28 bytes a node), ``B`` staged
+    rows of ``D`` float64, a list of ``L`` int32 row offsets and its int32
+    count."""
+    return 28 * N + 8 * B * D + 4 * L + 4
+
+
+def tile_plan(G: int, T: int, N: int, m: int,
+              D: int) -> Optional[TilePlan]:
+    """The shared route's launch shape for ``m`` rows of ``D`` features
+    over ``G`` forests of ``T`` trees of ``N`` nodes, or None where one
+    tree and one row do not fit a block's shared memory
+    (``_build.SMEM_PER_BLOCK``) or the grid would be too tall.
+
+    Tiles of ``tile_rows(G)`` rows. A batch holds the rows a block selects
+    when the tile's rows spread evenly over the ``G`` groups, rounded up to
+    a warp and capped at 128, then shrunk to fit: a block with more rows
+    routes them in more batches."""
+    R = tile_rows(G)
+    tiles = max(1, _cdiv(m, R))
+    if G > GRID_YZ_MAX or tiles > GRID_YZ_MAX:
+        return None
+    L = min(R, m)
+    B = max(1, min(TILE_THREADS, 32 * _cdiv(_cdiv(L, max(G, 1)), 32), L))
+    B = min(B, (_build.SMEM_PER_BLOCK - smem_bytes(N, D, L, 0))
+            // (8 * max(D, 1)))
+    if B < 1:
+        return None
+    return TilePlan(R, B, smem_bytes(N, D, L, B))
+
+
+def route_plan(G: int, T: int, N: int, m: int, D: int,
+               resident: Callable[[int], int]) -> Optional[TilePlan]:
+    """The plan of the shared route where a traversal takes it, else None
+    (the global route): :func:`tile_plan` fits, and its ``T G ceil(m / R)``
+    blocks fit the card in one round, ``resident(smem)`` being the blocks
+    of ``smem`` bytes the card holds at once. Beyond one round the blocks
+    that wait for an SM each stage a tree and their rows anew, and the
+    shared route lost to the global one on the card (``PERF.md``)."""
+    plan = tile_plan(G, T, N, m, D)
+    if plan is None or T * G * _cdiv(m, plan.R) > resident(plan.smem):
+        return None
+    return plan
+
+
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def resident_blocks(grouped: bool, smem: int, device) -> int:
+    """Blocks of the shared route's grouped (or single-forest) kernel with
+    ``smem`` bytes each that the card holds at once: its SMs times the
+    blocks one SM holds, as the CUDA runtime reads them off the built
+    kernel (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Cached per
+    (device, kernel, smem)."""
+    device = torch.device(device)
+    key = (device.index, grouped, smem)
+    if key not in _RESIDENT:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = library().forest_tile_blocks_per_sm(int(grouped), smem,
+                                                     ctypes.byref(per_sm))
+        _build.raise_on(rc, "forest_tile_blocks_per_sm")
+        _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _RESIDENT[key]
+
+
+def _launch(fn: str, key: str, X, T: int, *args) -> torch.Tensor:
+    """Launch entry point ``fn`` (arguments ``args``, then the leaves and
+    the stream) into fresh ``(T, rows)`` leaves; count it under ``key``."""
+    out = torch.empty((T, X.shape[0]), dtype=torch.float64, device=X.device)
+    if X.shape[0] == 0:
+        return out
+    with torch.cuda.device(X.device):
+        rc = getattr(library(), fn)(*args, out.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(rc, fn)
+    launches[key] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,23 +303,40 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
     if not _build.use_kernel(X, backend, "forest_eval"):
         return leaf_values_grouped_plain(X, gid, feat, thr, left, right,
                                          value, depth)
-    m = X.shape[0]
     _check_forest(X, feat, thr, left, right, value, (feat.shape[0],))
     G, T, N = feat.shape
+    m, D = X.shape
     _check("gid", gid, torch.int64, (m,), X.device)
     _check("depth", depth, torch.int64, (G,), X.device)
-    out = torch.empty((T, m), dtype=torch.float64, device=X.device)
-    if m == 0:
-        return out
-    with torch.cuda.device(X.device):
-        rc = library().forest_leaves_grouped(
-            X.data_ptr(), gid.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-            left.data_ptr(), right.data_ptr(), value.data_ptr(),
-            depth.data_ptr(), G, m, X.shape[1], T, N, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.raise_on(rc, "forest_leaves_grouped")
-    launches["leaf_values_grouped"] += 1
-    return out
+    args = (X, gid, feat, thr, left, right, value, depth)
+    plan = route_plan(G, T, N, m, D, lambda smem: resident_blocks(
+        True, smem, X.device))
+    if plan is None:
+        return _leaf_values_grouped_global(*args)
+    return _leaf_values_grouped_shared(*args, plan)
+
+
+def _leaf_values_grouped_shared(X, gid, feat, thr, left, right, value,
+                                depth, plan: TilePlan) -> torch.Tensor:
+    """The grouped traversal by the shared route with ``plan``, whatever
+    the wave's size; arguments as :func:`leaf_values_grouped` checks them."""
+    G, T, N = feat.shape
+    return _launch("forest_leaves_grouped", "leaf_values_grouped", X, T,
+                   *(a.data_ptr() for a in (X, gid, feat, thr, left, right,
+                                            value, depth)),
+                   G, *X.shape, T, N, *plan)
+
+
+def _leaf_values_grouped_global(X, gid, feat, thr, left, right, value,
+                                depth) -> torch.Tensor:
+    """The grouped traversal by the global route; arguments as
+    :func:`leaf_values_grouped` checks them."""
+    G, T, N = feat.shape
+    return _launch("forest_leaves_grouped_global",
+                   "leaf_values_grouped/global", X, T,
+                   *(a.data_ptr() for a in (X, gid, feat, thr, left, right,
+                                            value, depth)),
+                   G, *X.shape, T, N)
 
 
 # ---------------------------------------------------------------------------
@@ -200,17 +364,35 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
     _check_forest(X, feat, thr, left, right, value, ())
     m, D = X.shape
     T, N = feat.shape
-    out = torch.empty((T, m), dtype=torch.float64, device=X.device)
-    if m == 0:
-        return out
-    with torch.cuda.device(X.device):
-        rc = library().forest_leaves(
-            X.data_ptr(), feat.data_ptr(), thr.data_ptr(), left.data_ptr(),
-            right.data_ptr(), value.data_ptr(), int(depth), m, D, T, N,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.raise_on(rc, "forest_leaves")
-    launches["leaf_values"] += 1
-    return out
+    args = (X, feat, thr, left, right, value)
+    plan = route_plan(1, T, N, m, D, lambda smem: resident_blocks(
+        False, smem, X.device))
+    if plan is None:
+        return _leaf_values_global(*args, depth=depth)
+    return _leaf_values_shared(*args, depth=depth, plan=plan)
+
+
+def _leaf_values_shared(X, feat, thr, left, right, value, *, depth: int,
+                        plan: TilePlan) -> torch.Tensor:
+    """The single-forest traversal by the shared route with ``plan`` (the
+    plan of one group), whatever the wave's size; arguments as
+    :func:`leaf_values` checks them."""
+    T, N = feat.shape
+    return _launch("forest_leaves", "leaf_values", X, T,
+                   *(a.data_ptr() for a in (X, feat, thr, left, right,
+                                            value)),
+                   int(depth), *X.shape, T, N, *plan)
+
+
+def _leaf_values_global(X, feat, thr, left, right, value, *,
+                        depth: int) -> torch.Tensor:
+    """The single-forest traversal by the global route; arguments as
+    :func:`leaf_values` checks them."""
+    T, N = feat.shape
+    return _launch("forest_leaves_global", "leaf_values/global", X, T,
+                   *(a.data_ptr() for a in (X, feat, thr, left, right,
+                                            value)),
+                   int(depth), *X.shape, T, N)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ comparison with the float64 numpy reference is bitwise. Against the Pallas
 kernels (float32, interpret mode) the forests and inputs are first
 quantized to float32, so routing agrees exactly there too, and the float32
 leaf values compare exactly. The CUDA kernels themselves run only on the
-card: the ``cuda``-marked test skips here.
+card: the ``cuda``-marked tests skip here. The choice between the two
+kernel routes is a function of shapes and runs here.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import torch
 
 from repro.core.regressors import RandomForestRegressor
 from repro.kernels import forest_eval as ref
-from repro_torch.kernels import forest_eval
+from repro_torch.kernels import _build, forest_eval
 
 
 def _stack(seed=0, n_groups=4, d=4, flat_group=2):
@@ -190,6 +191,116 @@ def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
                               backend="pallas")
 
 
+def test_smem_bytes_counts_tree_rows_and_list():
+    """28 bytes a node (feat, left, right int32; thr, value float64), 8 a
+    staged feature, 4 a list entry, 4 for the count."""
+    assert forest_eval.smem_bytes(461, 33, 76, 32) \
+        == 461 * (4 + 8 + 4 + 4 + 8) + 32 * 33 * 8 + 76 * 4 + 4 == 21_664
+    assert forest_eval.smem_bytes(1, 1, 0, 0) == 32
+
+
+# blocks of the shared route an H100 holds at once, as the card reads them
+# (test_cuda_resident_blocks_of_the_paper_grid): 132 SMs; an SM's 65,536
+# registers hold 10 grouped blocks (48 registers a thread) or 12
+# single-forest ones (40), and its 228 KB of shared memory, with 1 KB
+# reserved a block, may hold fewer
+def _h100_resident(grouped):
+    return lambda smem: 132 * min(10 if grouped else 12,
+                                  233_472 // (smem + 1_024))
+
+
+def test_tile_plan_paper_grid_takes_shared_route():
+    """The paper grid's bank (12, 60, 461) with D = 33: the serving wave
+    (76 rows) and a pair's rows through one forest take the shared route;
+    a wave is one tile of 128 rows per group, 720 blocks in one round."""
+    plan = forest_eval.tile_plan(12, 60, 461, 76, 33)
+    assert plan == (1536, 32, forest_eval.smem_bytes(461, 33, 76, 32))
+    assert forest_eval.route_plan(12, 60, 461, 76, 33,
+                                  _h100_resident(True)) == plan
+    assert 60 * 12 <= _h100_resident(True)(plan.smem) == 1_320
+    single = forest_eval.tile_plan(1, 60, 461, 12, 33)
+    assert single == (128, 12, forest_eval.smem_bytes(461, 33, 12, 12))
+    assert forest_eval.route_plan(1, 60, 461, 12, 33,
+                                  _h100_resident(False)) == single
+
+
+def test_route_plan_takes_global_route_beyond_one_round():
+    """A wave whose shared-route grid needs more than one round of
+    resident blocks goes to the global route: over the paper grid's bank
+    at 1,024 rows (720 blocks, 660 resident) and 4,096; through one forest
+    beyond 8 tiles of 128 rows (528 resident at full batches)."""
+    def route(G, m):
+        return forest_eval.route_plan(G, 60, 461, m, 33,
+                                      _h100_resident(G > 1))
+    assert route(12, 512) == forest_eval.tile_plan(12, 60, 461, 512, 33)
+    full = forest_eval.tile_plan(12, 60, 461, 1024, 33)
+    assert full.B == 96 and _h100_resident(True)(full.smem) == 660
+    assert route(12, 1024) is None and route(12, 4096) is None
+    assert _h100_resident(False)(forest_eval.tile_plan(
+        1, 60, 461, 1024, 33).smem) == 528
+    assert route(1, 1024) is not None
+    assert route(1, 1025) is None and route(1, 4096) is None
+    # the rule itself: a grid of exactly one round still fits
+    assert forest_eval.route_plan(12, 60, 461, 76, 33,
+                                  lambda smem: 720) is not None
+    assert forest_eval.route_plan(12, 60, 461, 76, 33,
+                                  lambda smem: 719) is None
+
+
+def test_tile_plan_large_tree_takes_global_route():
+    """A tree whose 28 N bytes and one row leave no room in a block's
+    shared memory goes to the global route; one node fewer than the
+    limit still fits, with fewer rows a batch."""
+    D, m, G, T = 33, 76, 12, 60
+    L = min(forest_eval.tile_rows(G), m)
+    n_max = (_build.SMEM_PER_BLOCK - forest_eval.smem_bytes(0, D, L, 1)) \
+        // 28
+    assert forest_eval.tile_plan(G, T, n_max + 1, m, D) is None
+    assert forest_eval.route_plan(G, T, n_max + 1, m, D,
+                                  lambda smem: 10 ** 9) is None
+    fits = forest_eval.tile_plan(G, T, n_max, m, D)
+    assert fits is not None and fits.B == 1
+    assert fits.smem <= _build.SMEM_PER_BLOCK
+    assert forest_eval.tile_plan(G, T, 10_000, m, D) is None
+    # a grid taller than the card takes: 65,536 tiles of 128 rows
+    assert forest_eval.tile_plan(1, T, 15, 128 * 65_535 + 1, 4) is None
+
+
+@pytest.mark.parametrize("G,T,N,m,D", [
+    (12, 60, 461, 76, 33), (12, 60, 461, 4096, 33), (1, 60, 461, 1, 33),
+    (1, 60, 461, 4096, 33), (4, 60, 401, 100, 33), (40, 7, 127, 9000, 5),
+    (3, 1, 2000, 130, 300), (1, 60, 15, 8_388_480, 4)])
+def test_tile_plan_fits_the_kernel(G, T, N, m, D):
+    """Whatever the shape: tiles of whole warps' rows, at most 128 rows a
+    batch and no more than a tile holds, within a block's shared
+    memory."""
+    plan = forest_eval.tile_plan(G, T, N, m, D)
+    assert plan is not None
+    assert plan.R % forest_eval.TILE_THREADS == 0
+    assert plan.R == forest_eval.tile_rows(G) <= 128 * 16
+    assert 1 <= plan.B <= min(forest_eval.TILE_THREADS, plan.R, m)
+    assert plan.smem == forest_eval.smem_bytes(N, D, min(plan.R, m), plan.B)
+    assert plan.smem <= _build.SMEM_PER_BLOCK
+    assert -(-m // plan.R) <= forest_eval.GRID_YZ_MAX
+
+
+def test_cpu_traversals_read_no_occupancy():
+    """On CPU tensors the wrappers run the plain versions without asking
+    the card for its occupancy (there is no library to ask here)."""
+    _, s = _stack(seed=12)
+    t = _t(s)
+    rng = np.random.default_rng(6)
+    X = torch.from_numpy(rng.uniform(-2, 2, size=(17, 4)))
+    gid = torch.from_numpy(rng.integers(0, 4, size=17))
+    args = [t[k] for k in FIELDS]
+    forest_eval._RESIDENT.clear()
+    got = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"])
+    assert torch.equal(got, forest_eval.leaf_values_grouped_plain(
+        X, gid, *args, t["depth"]))
+    forest_eval.leaf_values(X, *(a[0] for a in args), depth=2)
+    assert forest_eval._RESIDENT == {}
+
+
 def _out_of_range_rows(s, device):
     """Rows 2 and 5 carry group ids outside ``[0, G)``."""
     t = {k: v.to(device) for k, v in _t(s).items()}
@@ -214,28 +325,52 @@ def test_grouped_plain_out_of_range_gid_gives_nan_rows():
     np.testing.assert_array_equal(got[:, ok].numpy(), want)
 
 
+def _bitwise_with_nan(got, want):
+    return torch.equal(torch.isnan(got), torch.isnan(want)) \
+        and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def _grouped_routes(X, gid, args, depth):
+    """The grouped traversal by each route on the card, whatever the
+    shape: {"shared": ..., "global": ...}."""
+    G, T, N = args[0].shape
+    plan = forest_eval.tile_plan(G, T, N, *X.shape)
+    return {"shared": forest_eval._leaf_values_grouped_shared(
+                X, gid, *args, depth, plan),
+            "global": forest_eval._leaf_values_grouped_global(
+                X, gid, *args, depth)}
+
+
+def _single_routes(X, args, depth):
+    T, N = args[0].shape
+    plan = forest_eval.tile_plan(1, T, N, *X.shape)
+    return {"shared": forest_eval._leaf_values_shared(
+                X, *args, depth=depth, plan=plan),
+            "global": forest_eval._leaf_values_global(X, *args,
+                                                      depth=depth)}
+
+
 @pytest.mark.cuda
 def test_cuda_grouped_kernel_out_of_range_gid_gives_nan_rows():
-    """On the card: the kernel's own range guard gives the plain version's
+    """On the card: each route's own range guard gives the plain version's
     NaN rows and leaves the other rows bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     _, s = _stack(seed=10)
     t, X, gid = _out_of_range_rows(s, "cuda")
     args = [t[k] for k in FIELDS]
-    got = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"],
-                                          backend="cuda")
     want = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"],
                                            backend="torch")
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    assert torch.isnan(got[:, [2, 5]]).all()
-    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    for route, got in _grouped_routes(X, gid, args, t["depth"]).items():
+        assert torch.isnan(got[:, [2, 5]]).all()
+        assert _bitwise_with_nan(got, want), route
 
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
-    """On the card: each kernel bitwise equal to its plain version, each
-    launch counted."""
+    """On the card: each kernel, by both routes, bitwise equal to its plain
+    version; each launch counted under its route, the shared route the one
+    chosen by shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     _, s = _stack(seed=9)
@@ -245,17 +380,96 @@ def test_cuda_kernels_match_plain_versions():
     gid = torch.from_numpy(rng.integers(0, 4, size=77)).cuda()
     forest_eval.reset_launches()
     args = [t[k] for k in FIELDS]
-    got = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"])
     want = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"],
                                            backend="torch")
+    got = forest_eval.leaf_values_grouped(X, gid, *args, t["depth"])
     assert torch.equal(got, want)
-    got1 = forest_eval.leaf_values(X, *(a[1] for a in args),
-                                   depth=int(s["depth"][1]))
-    want1 = forest_eval.leaf_values(X, *(a[1] for a in args),
-                                    depth=int(s["depth"][1]),
+    assert torch.equal(forest_eval._leaf_values_grouped_global(
+        X, gid, *args, t["depth"]), want)
+    args1 = [a[1] for a in args]
+    depth1 = int(s["depth"][1])
+    want1 = forest_eval.leaf_values(X, *args1, depth=depth1,
                                     backend="torch")
-    assert torch.equal(got1, want1)
+    assert torch.equal(forest_eval.leaf_values(X, *args1, depth=depth1),
+                       want1)
+    assert torch.equal(forest_eval._leaf_values_global(X, *args1,
+                                                       depth=depth1), want1)
     assert torch.equal(forest_eval.tree_mean(got),
                        forest_eval.tree_mean(got, backend="torch"))
-    assert forest_eval.launches == {"leaf_values_grouped": 1,
-                                    "leaf_values": 1, "tree_mean": 1}
+    assert forest_eval.launches == {
+        "leaf_values_grouped": 1, "leaf_values_grouped/global": 1,
+        "leaf_values": 1, "leaf_values/global": 1, "tree_mean": 1}
+
+
+def _card_cases():
+    """Inputs for the routes' card tests: ragged stacks with a depth-0
+    group, (name, X, gid) with rows absent from some groups, out-of-range
+    gids, one row, and row counts that are no multiple of a tile."""
+    _, s = _stack(seed=13, n_groups=4, d=4)
+    rng = np.random.default_rng(21)
+    cases = []
+    for m in (1, 77, 129, 511, 1000, 2100):
+        cases.append((f"m={m}", rng.uniform(-2, 2, size=(m, 4)),
+                      rng.integers(0, 4, size=m)))
+    X = rng.uniform(-2, 2, size=(300, 4))
+    cases.append(("groups 0 and 3 only", X, rng.choice([0, 3], size=300)))
+    cases.append(("depth-0 group only", X, np.full(300, 2)))
+    g = rng.integers(0, 4, size=300)
+    g[::7], g[3::11], g[5::13] = -1, 4, 11
+    cases.append(("out-of-range gids", X, g))
+    return s, cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ("shared", "global"))
+def test_cuda_grouped_routes_match_plain_bitwise(route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    s, cases = _card_cases()
+    t = {k: v.cuda() for k, v in _t(s).items()}
+    args = [t[k] for k in FIELDS]
+    for name, X, g in cases:
+        X, g = torch.from_numpy(X).cuda(), torch.from_numpy(g).cuda()
+        want = forest_eval.leaf_values_grouped(X, g, *args, t["depth"],
+                                               backend="torch")
+        got = _grouped_routes(X, g, args, t["depth"])[route]
+        torch.cuda.synchronize()
+        assert _bitwise_with_nan(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ("shared", "global"))
+def test_cuda_single_routes_match_plain_bitwise(route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    forests, _ = _stack(seed=14)
+    rng = np.random.default_rng(22)
+    for f in forests:
+        a = [torch.from_numpy(np.ascontiguousarray(getattr(f, k))).cuda()
+             for k in FIELDS]
+        for m in (1, 12, 129, 1000):
+            X = torch.from_numpy(rng.uniform(-2, 2, size=(m, 4))).cuda()
+            want = forest_eval.leaf_values(X, *a, depth=f.depth,
+                                           backend="torch")
+            got = _single_routes(X, a, f.depth)[route]
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (f.depth, m)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_blocks_of_the_paper_grid():
+    """On the card: the occupancy the route choice reads at the paper
+    grid's shapes, per SM: 10 grouped blocks and 12 single-forest ones
+    where registers bound it (48 and 40 a thread), fewer where shared
+    memory does. A change to the kernel that moves these numbers moves the
+    route choice, and the rows of PERF.md that rest on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for grouped, m, per_sm in ((True, 76, 10), (True, 512, 7),
+                               (True, 1024, 5), (True, 4096, 4),
+                               (False, 12, 12), (False, 1024, 4)):
+        plan = forest_eval.tile_plan(12 if grouped else 1, 60, 461, m, 33)
+        got = forest_eval.resident_blocks(grouped, plan.smem, dev)
+        assert got == sms * per_sm, (grouped, m, got)
