@@ -13,20 +13,25 @@ linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
 seed 0) on the card, then
 
   1. serves the ``synthetic_requests`` stream twice through
-     ``LatencyService`` (waves of 64; banked: one grouped forest launch per
-     wave) and one wave through the per-group path (single-forest kernel);
+     ``LatencyService`` (waves of 64; banked: one fused grouped launch,
+     traversal and tree mean, per wave; no separate tree-mean launch) and
+     one wave through the per-group path (one fused single-forest launch
+     per pair);
   2. holds each forest kernel, both traversals by both of their routes
-     (shared memory, the one the serving run takes, and global), against
-     its plain PyTorch version on the card (max abs difference must be 0,
-     NaN where the plain version has NaN): at the shapes the serving run
-     gave it, on random ragged forests with a depth-0 group, with
-     out-of-range group ids, with groups left out, at 1 row and at 4,096
-     rows drawn from the served waves; times every route at the serving
-     shapes and both in turns at 512 to 4,096 rows (and says which one
-     the wrapper takes there: the shared route only while its grid fits
-     the card in one round), the plain versions,
-     and the one PyTorch call that computes the same function where there
-     is one (``mean(0)`` for the tree mean; none traverses a forest);
+     (shared memory, the one the serving run takes, and global) and both
+     fused predictions (the shared route with the tree mean as its
+     epilogue), against its plain PyTorch version on the card (max abs
+     difference must be 0, NaN where the plain version has NaN): at the
+     shapes the serving run gave it, on random ragged forests with a
+     depth-0 group, with out-of-range group ids, with groups left out, at
+     1 row and at 4,096 rows drawn from the served waves; times every
+     kernel at the serving shapes, each fused prediction in turns with the
+     two launches it replaces, and both traversal routes in turns at 512
+     to 4,096 rows (and says which one the wrapper takes there: the shared
+     route only while its grid fits the card in one round), the plain
+     versions, and the one PyTorch call that computes the same function
+     where there is one (``mean(0)`` for the tree mean; none traverses a
+     forest);
   3. holds the card's answers for one wave against the same model run with
      ``device="cpu"`` (rtol 1e-5, the float32 DNN member's bar);
   4. replays the stream once more through a fresh service under
@@ -209,11 +214,24 @@ def replay_once(svc, reqs) -> dict:
 
 
 # the device functions of src/repro_torch/csrc, as the profiler names them
-REPO_KERNELS = ("leaves_tile_kernel", "leaves_grouped_kernel",
-                "leaves_single_kernel", "tree_mean_kernel",
-                "flash_fwd_kernel", "flash_bf16_kernel",
-                "ssd_scan_kernel", "ssd_states_kernel",
-                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+# (the shared route's by instantiation: <kGrouped, kMean>)
+FOREST_KERNELS = ("leaves_tile_kernel<true, true>",
+                  "leaves_tile_kernel<false, true>",
+                  "leaves_tile_kernel<true, false>",
+                  "leaves_tile_kernel<false, false>",
+                  "leaves_grouped_kernel", "leaves_single_kernel",
+                  "tree_mean_kernel")
+REPO_KERNELS = FOREST_KERNELS + (
+    "flash_fwd_kernel", "flash_bf16_kernel", "ssd_scan_kernel",
+    "ssd_states_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+
+
+def is_kernel(name, key) -> bool:
+    """Whether the profiler's ``key`` names device function ``name``
+    (spaces ignored, so a template's arguments match however they are
+    spaced)."""
+    name, key = name.replace(" ", ""), key.replace(" ", "")
+    return f"{name}<" in key or f"{name}(" in key
 
 
 def traced(torch, run) -> dict:
@@ -243,7 +261,7 @@ def traced(torch, run) -> dict:
                 name: {"calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
                 for e in kernels for name in REPO_KERNELS
-                if f"{name}<" in e.key or f"{name}(" in e.key}}
+                if is_kernel(name, e.key)}}
 
 
 def traced_replay(torch, svc, reqs) -> dict:
@@ -253,7 +271,6 @@ def traced_replay(torch, svc, reqs) -> dict:
     return traced(torch, svc.run)
 
 
-FOREST_KERNELS = REPO_KERNELS[:4]
 ROUTES = ("shared", "global")
 LARGE_WAVE = 4096
 # waves of rows drawn from the served ones at which both traversal routes
@@ -778,14 +795,19 @@ def main(argv=None) -> int:
     wave_plans = [oracle.plan(r) for r in reqs[:64]]
 
     forest_eval.reset_launches()
-    replays = []
+    replays, replay_counts = [], []
     for replay in (1, 2):
+        before = dict(forest_eval.launches)
         replays.append(replay_once(svc, reqs))
-        print(f"replay {replay}: {json.dumps(replays[-1])}")
+        replay_counts.append({k: v - before[k]
+                              for k, v in forest_eval.launches.items()})
+        print(f"replay {replay}: {json.dumps(replays[-1])}; launches "
+              f"{json.dumps(replay_counts[-1])}")
     per_group = oracle.execute(wave_plans, banked=False)
     counts = dict(forest_eval.launches)
     bank.execute = execute
     report["replays"] = replays
+    report["replay_launches"] = replay_counts
 
     s = svc.stats
     check(s.requests == 2 * args.requests and s.errors == 0
@@ -796,17 +818,27 @@ def main(argv=None) -> int:
     check(bank.forest_launches == s.fused_calls == len(waves) > 0,
           f"one grouped forest launch per banked wave "
           f"({bank.forest_launches} launches, {s.fused_calls} banked waves)")
-    check(counts["leaf_values_grouped"] == len(waves)
-          and counts["leaf_values_grouped/global"] == 0,
-          f"grouped kernel launched once per banked wave, by the shared "
-          f"route ({counts['leaf_values_grouped']}; global "
-          f"{counts['leaf_values_grouped/global']})")
-    check(not per_group.banked and counts["leaf_values"]
-          == per_group.fused_calls > 0 and counts["leaf_values/global"] == 0,
-          f"per-group wave launched the single-forest kernel once per pair, "
-          f"by the shared route ({counts['leaf_values']} launches)")
-    check(counts["tree_mean"] == len(waves) + per_group.fused_calls,
-          f"tree-mean kernel launched after every traversal "
+    for replay, (r, c) in enumerate(zip(replays, replay_counts), 1):
+        check(c["predict_grouped"] == r["banked_waves"]
+              and c["leaf_values_grouped"] == c["tree_mean"] == 0
+              and c["leaf_values_grouped/global"] == 0,
+              f"replay {replay}: one fused grouped launch (traversal and "
+              f"tree mean) per banked wave, by the shared route "
+              f"({c['predict_grouped']} for {r['banked_waves']} waves; "
+              f"leaves-only {c['leaf_values_grouped']}, global "
+              f"{c['leaf_values_grouped/global']}, tree mean "
+              f"{c['tree_mean']})")
+    check(counts["predict_grouped"] == len(waves),
+          f"{counts['predict_grouped']} fused grouped launches for "
+          f"{len(waves)} banked waves")
+    check(not per_group.banked and counts["predict"]
+          == per_group.fused_calls > 0 and counts["leaf_values"] == 0
+          and counts["leaf_values/global"] == 0,
+          f"per-group wave: one fused single-forest launch per pair, by "
+          f"the shared route ({counts['predict']} launches for "
+          f"{per_group.fused_calls} pairs)")
+    check(counts["tree_mean"] == 0,
+          f"no separate tree-mean launch on the served path "
           f"({counts['tree_mean']})")
     print(f"launches on the main path: {json.dumps(counts)}")
 
@@ -829,17 +861,22 @@ def main(argv=None) -> int:
           f"stack {tuple(rnd['feat'].shape)} depth {rnd['depth'].tolist()}")
     D = X.shape[1]
 
-    def chosen(grouped_, n):
-        """The plan the wrapper takes for n rows, or None (global route)."""
+    def chosen(grouped_, n, mean=False):
+        """The plan the wrapper takes for n rows, or None (global route);
+        with mean, the fused prediction's."""
         return forest_eval.route_plan(
             G if grouped_ else 1, T, N, n, D,
-            lambda smem: forest_eval.resident_blocks(grouped_, smem, dev))
+            lambda smem: forest_eval.resident_blocks(grouped_, smem, dev,
+                                                     mean=mean))
 
-    plans = {"grouped": chosen(True, m), "single": chosen(False, Xs.shape[0])}
-    shown = {k: (tuple(p), forest_eval.resident_blocks(k == "grouped",
-                                                        p.smem, dev))
+    plans = {"grouped": chosen(True, m), "single": chosen(False, Xs.shape[0]),
+             "predict_grouped": chosen(True, m, mean=True),
+             "predict": chosen(False, Xs.shape[0], mean=True)}
+    shown = {k: (tuple(p), forest_eval.resident_blocks(
+                 k in ("grouped", "predict_grouped"), p.smem, dev,
+                 mean=k.startswith("predict")))
              for k, p in plans.items() if p is not None}
-    check(len(shown) == 2,
+    check(len(shown) == 4,
           f"the serving shapes take the shared route (R rows a tile, B a "
           f"batch, smem bytes; blocks resident on the card): {shown}")
 
@@ -875,6 +912,24 @@ def main(argv=None) -> int:
         return forest_eval._leaf_values_shared(x, *args, depth=depth,
                                                plan=plan)
 
+    def fused_grouped(backend, x=X, g=gid, args=fa, depth=f["depth"],
+                      route=None):
+        """The grouped prediction by the wrapper (route None), or forced
+        through the fused kernel ("shared") whatever the shape."""
+        if route is None:
+            return forest_eval.predict_grouped(x, g, *args, depth,
+                                               backend=backend)
+        plan = forest_eval.tile_plan(args[0].shape[0], *args[0].shape[1:],
+                                     *x.shape)
+        return forest_eval._predict_grouped_shared(x, g, *args, depth, plan)
+
+    def fused_single(backend, x=Xs, args=sa, depth=depth1, route=None):
+        if route is None:
+            return forest_eval.predict(x, *args, depth=depth,
+                                       backend=backend)
+        plan = forest_eval.tile_plan(1, *args[0].shape, *x.shape)
+        return forest_eval._predict_shared(x, *args, depth=depth, plan=plan)
+
     # rows of every served wave, drawn with their group ids into a wave of
     # LARGE_WAVE rows spanning many row tiles
     X_all = torch.from_numpy(np.concatenate([w[0] for w in waves])).to(dev)
@@ -903,14 +958,17 @@ def main(argv=None) -> int:
         ("m = 1", Xs[:1], sa, depth1),
         (f"m = {LARGE_WAVE}", X4k, sa, depth1)]
     errs = {}
+    runners = {"leaf_values_grouped": grouped, "leaf_values": single,
+               "predict_grouped": fused_grouped, "predict": fused_single}
     for name, suffix in (("leaf_values_grouped", ""),
                          ("leaf_values_grouped", "/global"),
-                         ("leaf_values", ""), ("leaf_values", "/global")):
+                         ("leaf_values", ""), ("leaf_values", "/global"),
+                         ("predict_grouped", ""), ("predict", "")):
         route = "global" if suffix else "shared"
         worst = 0.0
-        for case in (grouped_cases if name == "leaf_values_grouped"
-                     else single_cases):
-            run = grouped if name == "leaf_values_grouped" else single
+        for case in (single_cases if name in ("leaf_values", "predict")
+                     else grouped_cases):
+            run = runners[name]
             e = max_err(run("cuda", *case[1:], route=route),
                         run("torch", *case[1:]))
             torch.cuda.synchronize()
@@ -918,6 +976,8 @@ def main(argv=None) -> int:
                   f"{case[0]} ({case[1].shape[0]} rows; max abs err {e})")
             worst = max(worst, e)
         errs[name + suffix] = worst
+    zero = all(not bool(b.any()) for b in forest_eval._COUNTERS.values())
+    check(zero, "the fused kernels' tile counters are back at zero")
 
     leaves = grouped("cuda")
     cpu_leaves = forest_eval.leaf_values_grouped(
@@ -933,6 +993,18 @@ def main(argv=None) -> int:
                 forest_eval.tree_mean(cpu_leaves)))
     check(errs["tree_mean"] == 0.0, f"tree_mean kernel equals its plain "
           f"version (max abs err {errs['tree_mean']})")
+    for name, on_card, on_cpu in [
+            ("predict_grouped", fused_grouped("cuda"),
+             forest_eval.predict_grouped(X.cpu(), gid.cpu(),
+                                         *(a.cpu() for a in fa),
+                                         f["depth"].cpu())),
+            ("predict", fused_single("cuda"),
+             forest_eval.predict(Xs.cpu(), *(a.cpu() for a in sa),
+                                 depth=depth1))]:
+        e = max_err(on_card.cpu(), on_cpu)
+        check(e == 0.0, f"{name} on the card equals the plain version on "
+              f"the CPU, served shapes (max abs err {e})")
+        errs[name] = max(errs[name], e)
 
     def grouped_work(x, g):
         """(bytes, compares) of a grouped traversal: the path's reads, gid
@@ -949,11 +1021,19 @@ def main(argv=None) -> int:
             torch.tensor([depth1], dtype=torch.int64, device=dev))
         return path + T * x.shape[0] * 8, cmp
 
+    def fused_work(work_l, n):
+        """The traversal's work with (n,) means out in place of the (T, n)
+        leaves (the scratch is not counted), plus the mean's T n adds and n
+        divides."""
+        return work_l[0] - T * n * 8 + n * 8, work_l[1] + T * n + n
+
     work_g, work_s = grouped_work(X, gid), single_work(Xs)
     work = {
         "leaf_values_grouped": work_g, "leaf_values_grouped/global": work_g,
         "leaf_values": work_s, "leaf_values/global": work_s,
         "tree_mean": (T * m * 8 + m * 8, T * m + m),
+        "predict_grouped": fused_work(work_g, m),
+        "predict": fused_work(work_s, Xs.shape[0]),
     }
     timed = {
         "leaf_values_grouped": (lambda: grouped("cuda"),
@@ -967,6 +1047,10 @@ def main(argv=None) -> int:
         "tree_mean": (lambda: forest_eval.tree_mean(leaves),
                       lambda: forest_eval.tree_mean(leaves,
                                                     backend="torch")),
+        "predict_grouped": (lambda: fused_grouped("cuda"),
+                            lambda: fused_grouped("torch")),
+        "predict": (lambda: fused_single("cuda"),
+                    lambda: fused_single("torch")),
     }
     meta = {
         "leaf_values_grouped": "src/repro/kernels/forest_eval.py:217",
@@ -974,6 +1058,8 @@ def main(argv=None) -> int:
         "leaf_values": "src/repro/kernels/forest_eval.py:158",
         "leaf_values/global": "src/repro/kernels/forest_eval.py:158",
         "tree_mean": "src/repro/kernels/forest_eval.py:38",
+        "predict_grouped": "src/repro/kernels/forest_eval.py:217",
+        "predict": "src/repro/kernels/forest_eval.py:158",
     }
     # one PyTorch call for the same function, timed as a yardstick only;
     # it sums in its own order, so it is not bitwise equal to tree_mean
@@ -994,8 +1080,30 @@ def main(argv=None) -> int:
             "bound_by": b_by,
             "library_ms": (time_kernel_ms(torch, library[name])
                            if name in library else None)})
-        print(f"{name}: {json.dumps(kernels[-1])}")
+        note = (" (bound: inputs once and the (rows,) means out; the "
+                "(T, rows) scratch of leaves is not counted)"
+                if name.startswith("predict") else "")
+        print(f"{name}: {json.dumps(kernels[-1])}{note}")
     report["work"] = {k: {"bytes": v[0], "ops": v[1]} for k, v in work.items()}
+
+    # each fused prediction in turns (fused, two, two, fused) with the two
+    # launches it replaces: the leaves-only traversal, then the tree mean
+    fused_vs_two = {}
+    for name, fused_run, leaves_run in [
+            ("predict_grouped", lambda: fused_grouped("cuda"),
+             lambda: grouped("cuda")),
+            ("predict", lambda: fused_single("cuda"),
+             lambda: single("cuda"))]:
+        runs = {"fused": fused_run,
+                "two": lambda r=leaves_run: forest_eval.tree_mean(r())}
+        t = [time_kernel_ms(torch, runs[k])
+             for k in ("fused", "two", "two", "fused")]
+        fu, tw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        fused_vs_two[name] = {"fused_ms": fu, "two_launches_ms": tw,
+                              "fused_over_two": fu / tw, "turns_ms": t}
+        print(f"{name} fused against its two launches: "
+              f"{json.dumps(fused_vs_two[name])}")
+    report["fused_vs_two_launches"] = fused_vs_two
 
     # both routes at larger waves, over the bank and through one forest,
     # and the one the wrapper takes there
@@ -1057,6 +1165,9 @@ def main(argv=None) -> int:
     trace["forest_share_of_busy"] = (forest_ms / trace["device_busy_ms"]
                                      if trace["device_busy_ms"] else None)
     print(f"trace: {json.dumps(trace)}")
+    check("tree_mean_kernel" not in trace["repo_kernels"],
+          f"no tree-mean launch in the traced replay; forest kernels traced: "
+          f"{sorted(k for k in trace['repo_kernels'] if k in FOREST_KERNELS)}")
     report["trace"] = trace
 
     # -- 5.-9. the LM serving path -------------------------------------------

@@ -265,7 +265,8 @@ class ModelBank:
         and load the kernel library, run every MLP bucket shape a wave up
         to ``max_rows`` rows can produce, and make one grouped forest
         launch per shape class (all rows in one group; one row in each
-        group). Returns the wall seconds spent (also kept in
+        group), which also allocates the fused kernel's tile counters for
+        this stream. Returns the wall seconds spent (also kept in
         ``warmup_ms``)."""
         t0 = time.perf_counter()
         dev = self.device

@@ -14,6 +14,10 @@ with a plain PyTorch version beside it and launch counters:
   - :func:`tree_mean` — the float64 mean over the tree axis, trees summed
     in order so a row's answer never depends on the other rows in the
     batch (``np.mean`` and ``torch.sum(dim=0)`` do not fix the order).
+  - :func:`predict_grouped` / :func:`predict` — a traversal and its tree
+    mean: on the shared route ONE launch of the traversal with the mean
+    as its epilogue (``leaves_tile_kernel<*, true>``), on the global route
+    the traversal, then ``tree_mean_kernel``.
 
 Each traversal has two kernel routes, chosen by shape alone
 (:func:`route_plan`):
@@ -35,6 +39,18 @@ Either route is one launch per call, counted under the traversal's name
 (``"leaf_values_grouped"``, ``"leaf_values"``) or, for the global route,
 that name + ``"/global"``. ``chip_smoke.py`` and the card tests compare
 the two by calling each route's private launcher.
+
+The fused predictions take the shared route where :func:`route_plan` does
+for their own kernels (whose occupancy :func:`resident_blocks` reads with
+``mean=True``) and count under ``"predict_grouped"`` / ``"predict"``;
+elsewhere they launch the global traversal and then :func:`tree_mean`,
+counted as those two. Their blocks write the leaves to a ``(T, rows)``
+scratch; the last block of each row tile to finish (an ``atomicAdd`` on
+one int32 counter per tile) adds the tile's trees in order and writes the
+means. :func:`tile_counters` keeps the counters, one buffer per (device,
+stream) so that launches which may overlap never share one; each launch
+leaves them at zero, so launches in a row and CUDA-graph replays need no
+memset.
 
 Routing compares in float64, so both traversals are bitwise equal to the
 reference's production path (``leaf_values_grouped_numpy`` /
@@ -60,7 +76,8 @@ from repro_torch.kernels import _build
 launches: Dict[str, int] = {"leaf_values_grouped": 0,
                             "leaf_values_grouped/global": 0,
                             "leaf_values": 0, "leaf_values/global": 0,
-                            "tree_mean": 0}
+                            "tree_mean": 0, "predict_grouped": 0,
+                            "predict": 0}
 
 # threads of a block of the shared route: the most rows one batch routes
 TILE_THREADS = 128
@@ -78,9 +95,15 @@ _SIGNATURES = {
     # leaves, stream
     "forest_leaves": [ctypes.c_void_p] * 6
     + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 2,
-    # grouped (0 or 1), smem, blocks out
-    "forest_tile_blocks_per_sm": [ctypes.c_longlong, ctypes.c_longlong,
-                                  ctypes.POINTER(ctypes.c_int)],
+    # the same with the tree mean: ... smem, leaves (scratch), done, out,
+    # stream
+    "forest_predict_grouped": [ctypes.c_void_p] * 8
+    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 4,
+    "forest_predict": [ctypes.c_void_p] * 6
+    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 4,
+    # grouped (0 or 1), mean (0 or 1), smem, blocks out
+    "forest_tile_blocks_per_sm": [ctypes.c_longlong] * 3
+    + [ctypes.POINTER(ctypes.c_int)],
     # the global route: the same as the shared one without R, B and smem
     "forest_leaves_grouped_global": [ctypes.c_void_p] * 8
     + [ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 2,
@@ -203,34 +226,69 @@ def route_plan(G: int, T: int, N: int, m: int, D: int,
 _RESIDENT: Dict[tuple, int] = {}
 
 
-def resident_blocks(grouped: bool, smem: int, device) -> int:
-    """Blocks of the shared route's grouped (or single-forest) kernel with
-    ``smem`` bytes each that the card holds at once: its SMs times the
-    blocks one SM holds, as the CUDA runtime reads them off the built
-    kernel (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Cached per
+def resident_blocks(grouped: bool, smem: int, device, *,
+                    mean: bool = False) -> int:
+    """Blocks of the shared route's grouped (or single-forest) kernel, with
+    the tree-mean epilogue if ``mean``, with ``smem`` bytes each that the
+    card holds at once: its SMs times the blocks one SM holds, as the CUDA
+    runtime reads them off the built kernel
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Cached per
     (device, kernel, smem)."""
     device = torch.device(device)
-    key = (device.index, grouped, smem)
+    key = (device.index, grouped, mean, smem)
     if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = library().forest_tile_blocks_per_sm(int(grouped), smem,
-                                                     ctypes.byref(per_sm))
+            rc = library().forest_tile_blocks_per_sm(
+                int(grouped), int(mean), smem, ctypes.byref(per_sm))
         _build.raise_on(rc, "forest_tile_blocks_per_sm")
         _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
             device).multi_processor_count
     return _RESIDENT[key]
 
 
-def _launch(fn: str, key: str, X, T: int, *args) -> torch.Tensor:
-    """Launch entry point ``fn`` (arguments ``args``, then the leaves and
-    the stream) into fresh ``(T, rows)`` leaves; count it under ``key``."""
-    out = torch.empty((T, X.shape[0]), dtype=torch.float64, device=X.device)
-    if X.shape[0] == 0:
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def tile_counters(m: int, plan: TilePlan, device,
+                  stream: int) -> torch.Tensor:
+    """The per-row-tile counters of a fused launch of ``m`` rows with
+    ``plan`` on ``stream`` (a CUDA stream handle) of ``device``: int32
+    zeros, at least ``ceil(m / plan.R)`` of them. One buffer per (device,
+    stream), kept across calls and grown to the tiles asked for when they
+    outnumber it (the buffer it replaces is freed in that stream's order,
+    after the launches queued on it); a launch leaves its counters at
+    zero."""
+    device = torch.device(device)
+    key = (device.type, device.index, stream)
+    tiles = _cdiv(m, plan.R)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = _COUNTERS[key] = torch.zeros(tiles, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def _launch(fn: str, key: str, X, T: int, *args,
+            mean: Optional[TilePlan] = None) -> torch.Tensor:
+    """Launch entry point ``fn`` (arguments ``args``, then the outputs and
+    the stream); count it under ``key``. Into fresh ``(T, rows)`` leaves;
+    or, with ``mean`` (the plan of a fused launch), into fresh ``(rows,)``
+    means over a ``(T, rows)`` scratch of leaves, with the stream's tile
+    counters."""
+    m = X.shape[0]
+    leaves = torch.empty((T, m), dtype=torch.float64, device=X.device)
+    out = leaves if mean is None else torch.empty(
+        m, dtype=torch.float64, device=X.device)
+    if m == 0:
         return out
     with torch.cuda.device(X.device):
-        rc = getattr(library(), fn)(*args, out.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        outs = (leaves.data_ptr(),) if mean is None else (
+            leaves.data_ptr(),
+            tile_counters(m, mean, X.device, stream).data_ptr(),
+            out.data_ptr())
+        rc = getattr(library(), fn)(*args, *outs, stream)
     _build.raise_on(rc, fn)
     launches[key] += 1
     return out
@@ -303,17 +361,25 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
     if not _build.use_kernel(X, backend, "forest_eval"):
         return leaf_values_grouped_plain(X, gid, feat, thr, left, right,
                                          value, depth)
+    args = (X, gid, feat, thr, left, right, value, depth)
+    plan = _grouped_plan(*args, mean=False)
+    if plan is None:
+        return _leaf_values_grouped_global(*args)
+    return _leaf_values_grouped_shared(*args, plan)
+
+
+def _grouped_plan(X, gid, feat, thr, left, right, value, depth, *,
+                  mean: bool) -> Optional[TilePlan]:
+    """Check the grouped kernels' arguments; the shared route's plan for
+    the traversal (with ``mean``, for the fused prediction), or None for
+    the global route."""
     _check_forest(X, feat, thr, left, right, value, (feat.shape[0],))
     G, T, N = feat.shape
     m, D = X.shape
     _check("gid", gid, torch.int64, (m,), X.device)
     _check("depth", depth, torch.int64, (G,), X.device)
-    args = (X, gid, feat, thr, left, right, value, depth)
-    plan = route_plan(G, T, N, m, D, lambda smem: resident_blocks(
-        True, smem, X.device))
-    if plan is None:
-        return _leaf_values_grouped_global(*args)
-    return _leaf_values_grouped_shared(*args, plan)
+    return route_plan(G, T, N, m, D, lambda smem: resident_blocks(
+        True, smem, X.device, mean=mean))
 
 
 def _leaf_values_grouped_shared(X, gid, feat, thr, left, right, value,
@@ -325,6 +391,18 @@ def _leaf_values_grouped_shared(X, gid, feat, thr, left, right, value,
                    *(a.data_ptr() for a in (X, gid, feat, thr, left, right,
                                             value, depth)),
                    G, *X.shape, T, N, *plan)
+
+
+def _predict_grouped_shared(X, gid, feat, thr, left, right, value, depth,
+                            plan: TilePlan) -> torch.Tensor:
+    """The grouped prediction in one launch of the shared route with the
+    tree-mean epilogue, with ``plan`` whatever the wave's size; arguments
+    as :func:`leaf_values_grouped` checks them."""
+    G, T, N = feat.shape
+    return _launch("forest_predict_grouped", "predict_grouped", X, T,
+                   *(a.data_ptr() for a in (X, gid, feat, thr, left, right,
+                                            value, depth)),
+                   G, *X.shape, T, N, *plan, mean=plan)
 
 
 def _leaf_values_grouped_global(X, gid, feat, thr, left, right, value,
@@ -361,15 +439,21 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
     arrays ``(T, N)``, ``depth`` the forest's grown depth."""
     if not _build.use_kernel(X, backend, "forest_eval"):
         return leaf_values_plain(X, feat, thr, left, right, value, depth)
-    _check_forest(X, feat, thr, left, right, value, ())
-    m, D = X.shape
-    T, N = feat.shape
     args = (X, feat, thr, left, right, value)
-    plan = route_plan(1, T, N, m, D, lambda smem: resident_blocks(
-        False, smem, X.device))
+    plan = _single_plan(*args, mean=False)
     if plan is None:
         return _leaf_values_global(*args, depth=depth)
     return _leaf_values_shared(*args, depth=depth, plan=plan)
+
+
+def _single_plan(X, feat, thr, left, right, value, *,
+                 mean: bool) -> Optional[TilePlan]:
+    """As :func:`_grouped_plan`, for the single-forest kernels."""
+    _check_forest(X, feat, thr, left, right, value, ())
+    m, D = X.shape
+    T, N = feat.shape
+    return route_plan(1, T, N, m, D, lambda smem: resident_blocks(
+        False, smem, X.device, mean=mean))
 
 
 def _leaf_values_shared(X, feat, thr, left, right, value, *, depth: int,
@@ -382,6 +466,18 @@ def _leaf_values_shared(X, feat, thr, left, right, value, *, depth: int,
                    *(a.data_ptr() for a in (X, feat, thr, left, right,
                                             value)),
                    int(depth), *X.shape, T, N, *plan)
+
+
+def _predict_shared(X, feat, thr, left, right, value, *, depth: int,
+                    plan: TilePlan) -> torch.Tensor:
+    """The single-forest prediction in one launch of the shared route with
+    the tree-mean epilogue (``plan`` of one group); arguments as
+    :func:`leaf_values` checks them."""
+    T, N = feat.shape
+    return _launch("forest_predict", "predict", X, T,
+                   *(a.data_ptr() for a in (X, feat, thr, left, right,
+                                            value)),
+                   int(depth), *X.shape, T, N, *plan, mean=plan)
 
 
 def _leaf_values_global(X, feat, thr, left, right, value, *,
@@ -436,18 +532,45 @@ def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def predict_plain(X, feat, thr, left, right, value,
+                  depth: int) -> torch.Tensor:
+    """Plain version of the fused single-forest kernel."""
+    return tree_mean_plain(leaf_values_plain(X, feat, thr, left, right,
+                                             value, depth))
+
+
 def predict(X, feat, thr, left, right, value, *, depth: int,
             backend: str = "auto") -> torch.Tensor:
-    """Forest prediction: float64 tree mean of the per-tree leaf values."""
-    return tree_mean(leaf_values(X, feat, thr, left, right, value,
-                                 depth=depth, backend=backend),
-                     backend=backend)
+    """Forest prediction: float64 tree mean of the per-tree leaf values;
+    arguments as :func:`leaf_values`. On the card one launch where the
+    shared route is taken, else the global traversal and the tree mean."""
+    if not _build.use_kernel(X, backend, "forest_eval"):
+        return predict_plain(X, feat, thr, left, right, value, depth)
+    args = (X, feat, thr, left, right, value)
+    plan = _single_plan(*args, mean=True)
+    if plan is None:
+        return tree_mean(_leaf_values_global(*args, depth=depth))
+    return _predict_shared(*args, depth=depth, plan=plan)
+
+
+def predict_grouped_plain(X, gid, feat, thr, left, right, value,
+                          depth) -> torch.Tensor:
+    """Plain version of the fused grouped kernel."""
+    return tree_mean_plain(leaf_values_grouped_plain(
+        X, gid, feat, thr, left, right, value, depth))
 
 
 def predict_grouped(X, gid, feat, thr, left, right, value, depth, *,
                     backend: str = "auto") -> torch.Tensor:
-    """Grouped forest prediction: every row through its own group's forest
-    in ONE traversal launch, then one tree-mean launch."""
-    return tree_mean(leaf_values_grouped(X, gid, feat, thr, left, right,
-                                         value, depth, backend=backend),
-                     backend=backend)
+    """Grouped forest prediction: every row through its own group's
+    forest; arguments as :func:`leaf_values_grouped`. On the card ONE
+    launch where the shared route is taken (every serving wave of the
+    paper grid), else the global traversal and the tree mean."""
+    if not _build.use_kernel(X, backend, "forest_eval"):
+        return predict_grouped_plain(X, gid, feat, thr, left, right, value,
+                                     depth)
+    args = (X, gid, feat, thr, left, right, value, depth)
+    plan = _grouped_plan(*args, mean=True)
+    if plan is None:
+        return tree_mean(_leaf_values_grouped_global(*args))
+    return _predict_grouped_shared(*args, plan)

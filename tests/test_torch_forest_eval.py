@@ -9,7 +9,9 @@ kernels (float32, interpret mode) the forests and inputs are first
 quantized to float32, so routing agrees exactly there too, and the float32
 leaf values compare exactly. The CUDA kernels themselves run only on the
 card: the ``cuda``-marked tests skip here. The choice between the two
-kernel routes is a function of shapes and runs here.
+kernel routes is a function of shapes and runs here, and so does the
+choice between the fused prediction (traversal and tree mean in one
+launch) and the global traversal followed by the tree mean.
 """
 import numpy as np
 import pytest
@@ -398,7 +400,8 @@ def test_cuda_kernels_match_plain_versions():
                        forest_eval.tree_mean(got, backend="torch"))
     assert forest_eval.launches == {
         "leaf_values_grouped": 1, "leaf_values_grouped/global": 1,
-        "leaf_values": 1, "leaf_values/global": 1, "tree_mean": 1}
+        "leaf_values": 1, "leaf_values/global": 1, "tree_mean": 1,
+        "predict_grouped": 0, "predict": 0}
 
 
 def _card_cases():
@@ -461,15 +464,260 @@ def test_cuda_resident_blocks_of_the_paper_grid():
     """On the card: the occupancy the route choice reads at the paper
     grid's shapes, per SM: 10 grouped blocks and 12 single-forest ones
     where registers bound it (48 and 40 a thread), fewer where shared
-    memory does. A change to the kernel that moves these numbers moves the
-    route choice, and the rows of PERF.md that rest on it."""
+    memory does; the fused kernels (traversal and tree mean) 7 where
+    registers bound them (72 a thread, the cap of their launch bounds).
+    A change to the kernel that moves these numbers moves the route
+    choice, and the rows of PERF.md that rest on it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for grouped, m, per_sm in ((True, 76, 10), (True, 512, 7),
-                               (True, 1024, 5), (True, 4096, 4),
-                               (False, 12, 12), (False, 1024, 4)):
+    for grouped, m, per_sm, fused_per_sm in (
+            (True, 76, 10, 7), (True, 512, 7, 7), (True, 1024, 5, 5),
+            (True, 4096, 4, 4), (False, 12, 12, 7), (False, 1024, 4, 4)):
         plan = forest_eval.tile_plan(12 if grouped else 1, 60, 461, m, 33)
         got = forest_eval.resident_blocks(grouped, plan.smem, dev)
         assert got == sms * per_sm, (grouped, m, got)
+        got = forest_eval.resident_blocks(grouped, plan.smem, dev,
+                                          mean=True)
+        assert got == sms * fused_per_sm, ("fused", grouped, m, got)
+
+
+# ---------------------------------------------------------------------------
+# the forest predictions: the traversal with its tree mean
+# ---------------------------------------------------------------------------
+
+
+def _predict_case(name):
+    """(stack, X, gid) of one prediction case: ragged groups with a depth-0
+    one, every row in the depth-0 group, no rows, gids out of range."""
+    _, s = _stack(seed=15)
+    rng = np.random.default_rng(31)
+    X = rng.uniform(-2, 2, size=(0 if name == "empty wave" else 61, 4))
+    gid = rng.integers(0, 4, size=len(X))
+    if name == "depth-0 group only":
+        gid[:] = 2
+    if name == "out-of-range gids":
+        gid[::6], gid[4::9] = -1, 4
+    return s, X, gid
+
+
+@pytest.mark.parametrize("name", ("ragged groups", "depth-0 group only",
+                                  "empty wave", "out-of-range gids"))
+def test_predict_grouped_matches_reference_bitwise(name):
+    """On the CPU, the plain version of the fused grouped kernel equals
+    ``repro``'s ``predict_grouped`` bit for bit on the rows with a group;
+    a row whose gid lies outside ``[0, G)`` is NaN."""
+    s, X, gid = _predict_case(name)
+    t = _t(s)
+    got = forest_eval.predict_grouped(
+        torch.from_numpy(X), torch.from_numpy(gid), *(t[k] for k in FIELDS),
+        t["depth"]).numpy()
+    assert got.shape == (len(X),) and got.dtype == np.float64
+    ok = (gid >= 0) & (gid < 4)
+    assert np.isnan(got[~ok]).all() and (name != "out-of-range gids"
+                                         or (~ok).sum() >= 10)
+    want = ref.predict_grouped(X[ok], gid[ok], *(s[k] for k in FIELDS),
+                               depth=s["depth"], backend="numpy")
+    np.testing.assert_array_equal(got[ok], want)
+
+
+@pytest.mark.parametrize("rows", (0, 1, 61))
+def test_predict_single_matches_reference_bitwise(rows):
+    """The plain version of the fused single-forest kernel equals
+    ``repro``'s ``predict`` bit for bit, for every forest of a ragged
+    stack, the depth-0 one included, and on no rows."""
+    forests, _ = _stack(seed=16)
+    X = np.random.default_rng(rows).uniform(-2, 2, size=(rows, 4))
+    for f in forests:
+        got = forest_eval.predict(
+            torch.from_numpy(X), *(torch.from_numpy(getattr(f, k))
+                                   for k in FIELDS), depth=f.depth)
+        want = ref.predict(X, f.feat, f.thr, f.left, f.right, f.value,
+                           depth=f.depth, backend="numpy")
+        assert got.shape == (rows,)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("grouped,m", [
+    (True, 1), (True, 76), (True, 512), (True, 1024), (True, 4096),
+    (False, 12), (False, 1024), (False, 1025), (False, 4096)])
+def test_predict_fuses_exactly_where_the_shared_route_is_taken(
+        monkeypatch, grouped, m):
+    """The predictions launch the fused kernel with the plan of
+    :func:`route_plan` (read with the fused kernels' occupancy) where it
+    picks the shared route, and the global traversal followed by the tree
+    mean where it picks none. The launchers are replaced by recorders, so
+    this runs without a card at the paper grid's shapes."""
+    G, T, N, D = (12 if grouped else 1), 60, 461, 33
+    calls = []
+
+    def record(what):
+        def fake(*a, **kw):
+            calls.append((what, kw.get("plan", a[-1] if what == "fused"
+                                       else None)))
+            return torch.zeros(m if what in ("fused", "mean") else (T, m),
+                               dtype=torch.float64)
+        return fake
+
+    def resident(grouped_, smem, device, *, mean=False):
+        assert grouped_ == grouped and mean
+        return _h100_resident(grouped)(smem)
+
+    monkeypatch.setattr(_build, "use_kernel", lambda x, backend, mod: True)
+    monkeypatch.setattr(forest_eval, "resident_blocks", resident)
+    monkeypatch.setattr(forest_eval, "tree_mean", record("mean"))
+    for fn in ("_predict_grouped_shared", "_predict_shared"):
+        monkeypatch.setattr(forest_eval, fn, record("fused"))
+    for fn in ("_leaf_values_grouped_global", "_leaf_values_global"):
+        monkeypatch.setattr(forest_eval, fn, record("global"))
+    X = torch.zeros((m, D), dtype=torch.float64)
+    arrays = [torch.zeros(((G,) if grouped else ()) + (T, N), dtype=dt)
+              for dt in (torch.int32, torch.float64, torch.int32,
+                         torch.int32, torch.float64)]
+    if grouped:
+        forest_eval.predict_grouped(
+            X, torch.zeros(m, dtype=torch.int64), *arrays,
+            torch.zeros(G, dtype=torch.int64))
+    else:
+        forest_eval.predict(X, *arrays, depth=3)
+    plan = forest_eval.route_plan(G, T, N, m, D, _h100_resident(grouped))
+    if plan is None:
+        assert calls == [("global", None), ("mean", None)]
+    else:
+        assert calls == [("fused", plan)]
+
+
+def test_tile_counters_sized_to_row_tiles():
+    """One buffer of int32 zeros per (device, stream), ceil(m / R) counters
+    when first asked, grown only when a launch has more row tiles, never
+    shared between two streams."""
+    forest_eval._COUNTERS.clear()
+    grouped = forest_eval.tile_plan(12, 60, 461, 76, 33)
+    single = forest_eval.tile_plan(1, 60, 461, 1000, 33)
+    assert (grouped.R, single.R) == (1536, 128)
+    a = forest_eval.tile_counters(76, grouped, "cpu", 7)
+    assert a.dtype == torch.int32 and a.numel() == 1 and not a.any()
+    assert forest_eval.tile_counters(1536, grouped, "cpu", 7) is a
+    b = forest_eval.tile_counters(1000, single, "cpu", 7)
+    assert b.numel() == 8 and not b.any()
+    assert forest_eval.tile_counters(4000, grouped, "cpu", 7) is b
+    c = forest_eval.tile_counters(1537, grouped, "cpu", 8)
+    assert c.numel() == 2 and c.data_ptr() != b.data_ptr()
+    assert len(forest_eval._COUNTERS) == 2
+    forest_eval._COUNTERS.clear()
+
+
+def _counters_zero():
+    return all(not bool(b.any()) for b in forest_eval._COUNTERS.values())
+
+
+def _fused_routes(X, gid, args, depth):
+    G, T, N = args[0].shape
+    return forest_eval._predict_grouped_shared(
+        X, gid, *args, depth, forest_eval.tile_plan(G, T, N, *X.shape))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_grouped_matches_plain_bitwise():
+    """On the card: the fused grouped kernel, forced whatever the shape,
+    equals its plain version bit for bit (NaN rows where gids are out of
+    range) on waves with groups absent from a tile, rows no multiple of
+    R, several row tiles and one row; after every launch its tile counters
+    read back zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    s, cases = _card_cases()
+    t = {k: v.cuda() for k, v in _t(s).items()}
+    args = [t[k] for k in FIELDS]
+    for name, X, g in cases:
+        X, g = torch.from_numpy(X).cuda(), torch.from_numpy(g).cuda()
+        want = forest_eval.predict_grouped(X, g, *args, t["depth"],
+                                           backend="torch")
+        got = _fused_routes(X, g, args, t["depth"])
+        torch.cuda.synchronize()
+        assert _bitwise_with_nan(got, want), name
+        assert _counters_zero(), name
+        assert _bitwise_with_nan(
+            forest_eval.predict_grouped(X, g, *args, t["depth"]), want), name
+
+
+@pytest.mark.cuda
+def test_cuda_fused_single_matches_plain_bitwise():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    forests, _ = _stack(seed=14)
+    rng = np.random.default_rng(23)
+    for f in forests:
+        a = [torch.from_numpy(np.ascontiguousarray(getattr(f, k))).cuda()
+             for k in FIELDS]
+        for m in (1, 12, 129, 1000, 2100):
+            X = torch.from_numpy(rng.uniform(-2, 2, size=(m, 4))).cuda()
+            want = forest_eval.predict(X, *a, depth=f.depth, backend="torch")
+            got = forest_eval._predict_shared(
+                X, *a, depth=f.depth,
+                plan=forest_eval.tile_plan(1, *a[0].shape, m, 4))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (f.depth, m)
+            assert _counters_zero(), (f.depth, m)
+            assert torch.equal(forest_eval.predict(X, *a, depth=f.depth),
+                               want), (f.depth, m)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_graph_replays_repeat_bits():
+    """Ten replays of a CUDA graph that holds one fused launch of several
+    row tiles give the plain version's bits each time, and leave the
+    counters at zero: no memset between replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    s, cases = _card_cases()
+    t = {k: v.cuda() for k, v in _t(s).items()}
+    args = [t[k] for k in FIELDS]
+    _, X, g = cases[5]  # 2,100 rows: 5 tiles of 512
+    X, g = torch.from_numpy(X).cuda(), torch.from_numpy(g).cuda()
+    want = forest_eval.predict_grouped(X, g, *args, t["depth"],
+                                       backend="torch")
+    assert torch.equal(_fused_routes(X, g, args, t["depth"]), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _fused_routes(X, g, args, t["depth"])
+    for _ in range(10):
+        out.fill_(0.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert _counters_zero()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_on_two_streams_at_once():
+    """Fused launches issued on two streams in turns, without waiting for
+    each other, each give the plain answer: each stream has its own
+    counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    s, cases = _card_cases()
+    t = {k: v.cuda() for k, v in _t(s).items()}
+    args = [t[k] for k in FIELDS]
+    inputs = [(torch.from_numpy(X).cuda(), torch.from_numpy(g).cuda())
+              for _, X, g in (cases[4], cases[5])]
+    wants = [forest_eval.predict_grouped(X, g, *args, t["depth"],
+                                         backend="torch")
+             for X, g in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(_fused_routes(*inputs[i], args, t["depth"]))
+    torch.cuda.synchronize()
+    handles = {st.cuda_stream for st in streams}
+    bufs = [b for (_, _, h), b in forest_eval._COUNTERS.items()
+            if h in handles]
+    assert len(bufs) == 2 and bufs[0].data_ptr() != bufs[1].data_ptr()
+    for i in range(2):
+        assert all(torch.equal(o, wants[i]) for o in outs[i])
+    assert _counters_zero()
