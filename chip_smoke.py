@@ -36,25 +36,38 @@ seed 0) on the card, then
      ``device="cpu"`` (rtol 1e-5, the float32 DNN member's bar);
   4. replays the stream once more through a fresh service under
      ``torch.profiler`` and prints the card's idle share and top kernels
-     (profiler overhead included; the untraced replays give the latency).
+     (profiler overhead included; the untraced replays give the latency);
+  5. saves the fitted oracle with ``repro_torch.api.save`` and loads it on
+     the card and on the CPU (linear and forest members bit for bit, the
+     answers within rtol 1e-5); serves the stream through a 2-worker
+     thread-mode shard plane in process (one fused grouped launch per
+     shard slice, no plain version); launches 2 TCP shard workers on the
+     card and serves the stream over HTTP (``BackgroundServer``,
+     ``replay`` with 8 clients) through ``LatencyService(shard_plane=...,
+     supervise=...)``: every request answers within rtol 1e-5 of the
+     unsharded service, each worker runs one fused launch per slice and
+     holds a CUDA context (its pid in ``nvidia-smi``); kills worker 1
+     mid-replay (requests riding it retry once), waits for the supervisor
+     to respawn it and serves again; then float64-only oracles through
+     thread, spawn and TCP planes, bit for bit as the unsharded bank.
 
 The LM serving path, at the full published widths and depths, random
 float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
 
-  5. the llama3.2-1b prefill step on (4, 2048) tokens: exactly 16
+  6. the llama3.2-1b prefill step on (4, 2048) tokens: exactly 16
      flash-attention launches per call, finite next tokens and logits,
      median step time. The model (params rounded to bf16 values) is held
      end to end against the same model with the plain attention in float32
      (atol 1e-4, rtol 1e-4, the CPU parity tests' bar); in bf16 its
      last-position logits may end at most 2x as far from that float32
      plain run as the bf16 plain run's do;
-  6. the mamba2-130m prefill step on (4, 2048) tokens: exactly 24 SSD-scan
+  7. the mamba2-130m prefill step on (4, 2048) tokens: exactly 24 SSD-scan
      launches per call, the same checks;
-  7. ``Engine`` serving 8 requests for each model (4 slots, 16 new tokens,
+  8. ``Engine`` serving 8 requests for each model (4 slots, 16 new tokens,
      max_len 128, continuous), as ``launch/serve.py`` does by default; it
      launches neither kernel (prefill goes through the decode step);
-  8. the two kernels against their plain versions at the inputs phases 5
-     and 6 gave them and at random shapes (flash: GQA, MQA, KV == H, D 16,
+  9. the two kernels against their plain versions at the inputs phases 6
+     and 7 gave them and at random shapes (flash: GQA, MQA, KV == H, D 16,
      32, 64 and 128, S 300 and 1000, f32 and bf16; SSD: P 32, 64 and 128,
      N 64 and 128, chunks 64, 128 and 256, 16 chunks at S 4096), bars f32
      atol 2e-5 / rtol 1e-4 and bf16 atol 6e-3 / rtol 3e-2 (SSD after
@@ -64,7 +77,7 @@ float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
      and, for attention, PyTorch's ``scaled_dot_product_attention`` (timed
      only; the port never calls it), and the float32 kernels at the same
      shapes (cast), held to the float32 bar and timed the same way;
-  9. one prefill of each model under ``torch.profiler``: idle share and
+ 10. one prefill of each model under ``torch.profiler``: idle share and
      top device kernels.
 
 Launch counts are zeroed just before each path's main run and read just
@@ -316,6 +329,367 @@ def random_forest_stack(torch, device, d=33, seed=0):
 
 
 # ---------------------------------------------------------------------------
+# artifacts, sharded and HTTP serving (phase 5)
+# ---------------------------------------------------------------------------
+
+
+def gpu_apps() -> dict:
+    """pid -> device memory (MiB) of every compute process ``nvidia-smi``
+    lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(","))
+        apps[int(pid)] = int(mem)
+    return apps
+
+
+def gpu_memory_used_mib() -> int:
+    """The card's used memory as ``nvidia-smi`` reads it, all contexts."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+
+
+def check_worker_contexts(tag, procs, stats, mib_before, card) -> dict:
+    """Each shard worker process holds a CUDA context on the card. Where
+    ``nvidia-smi`` lists the workers' pids, their rows say so; where it
+    attributes every context to one process of its own (as behind a
+    container's GPU proxy), each worker's report from its own process
+    (pid, bytes its torch holds on the card) says so, and the card's used
+    memory must have grown since before the workers started."""
+    import os
+    apps = gpu_apps()
+    used = gpu_memory_used_mib()
+    out = {"nvidia_smi_apps": apps, "memory_used_mib": used,
+           "memory_used_before_mib": mib_before,
+           "worker_pids": [p.pid for p in procs],
+           "worker_cuda_bytes": [st.get("cuda_memory_allocated")
+                                 for st in stats]}
+    for i, (p, st) in enumerate(zip(procs, stats)):
+        check(st["pid"] == p.pid != os.getpid()
+              and (st.get("cuda_memory_allocated") or 0) > 0,
+              f"{tag}: worker {i} (pid {p.pid}) holds "
+              f"{st.get('cuda_memory_allocated')} bytes on the card, "
+              "reported from its own process")
+    if all(p.pid in apps for p in procs):
+        out["worker_mib"] = [apps[p.pid] for p in procs]
+        check(all(m > 0 for m in out["worker_mib"]),
+              f"{tag}: nvidia-smi lists each worker's context: "
+              f"{out['worker_mib']} MiB; card: {card}")
+    else:
+        check(used > mib_before,
+              f"{tag}: nvidia-smi lists the card's contexts under pids "
+              f"{sorted(apps)} (a GPU proxy's), not the workers' "
+              f"{out['worker_pids']}; the card's used memory went from "
+              f"{mib_before} to {used} MiB with the workers "
+              f"({(used - mib_before) / len(procs):.0f} MiB a worker); "
+              f"card: {card}")
+    return out
+
+
+def member_preds(torch, bank, X, gids) -> dict:
+    """Each member's prediction of a bank for the rows (X, gids), as
+    ``ModelBank.execute`` computes them before the median."""
+    from repro_torch.core.regressors import LinearRegressor
+    from repro_torch.kernels import forest_eval
+    out = {}
+    if bank.lin_coef is not None:
+        out["linear"] = LinearRegressor.apply(LinearRegressor._design(X),
+                                              bank.lin_coef[gids])
+    if bank.forest is not None:
+        f = bank.forest
+        out["forest"] = forest_eval.predict_grouped(
+            torch.from_numpy(X).to(bank.device),
+            torch.from_numpy(gids).to(bank.device), f["feat"], f["thr"],
+            f["left"], f["right"], f["value"], f["depth"]).cpu().numpy()
+    if bank.dnn is not None:
+        out["dnn"] = bank._dnn_member(X, gids)
+    return out
+
+
+def max_rel(np, got, want) -> float:
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def served(np, svc, reqs) -> list:
+    """The service's answers to ``reqs`` in request order."""
+    svc.take_finished()
+    for r in reqs:
+        svc.submit(r)
+    svc.run()
+    done = sorted(svc.take_finished(), key=lambda sr: sr.uid)
+    assert all(sr.error is None for sr in done), [sr.error for sr in done]
+    return np.array([sr.result.latency_ms for sr in done])
+
+
+def shard_phase(torch, np, oracle, reqs, waves, wave_plans, args,
+                card) -> dict:
+    """Phase 5: the artifact store, HTTP serving through two TCP shard
+    workers on the card (and after one is killed), a thread-mode plane in
+    process, and float64-only planes of every kind."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.core.predictor import ProfetConfig
+    from repro_torch.kernels import forest_eval
+    from repro_torch.serve import (BackgroundServer, LatencyService,
+                                   LifecycleConfig, RetryPolicy,
+                                   ShardPlane, launch_tcp_workers, replay)
+    rep = {}
+    X, gids = max(waves, key=lambda w: len(w[0]))
+
+    # -- artifacts: save on the card, load on the card and on the CPU -----
+    path = ROOT / "build" / "smoke" / "oracle.pkl"
+    t0 = time.perf_counter()
+    manifest = api.save(oracle, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_card = api.load(path, expect_config=oracle.config, device="cuda")
+    load_s = time.perf_counter() - t0
+    on_cpu = api.load(path, expect_config=oracle.config, device="cpu")
+    check(on_card.bank.forest["feat"].is_cuda
+          and not on_cpu.bank.forest["feat"].is_cuda,
+          f"artifact ({path.stat().st_size} bytes, saved in {save_s:.2f} s, "
+          f"loaded on the card in {load_s:.2f} s) reloads on the card and "
+          "on the CPU")
+    want = member_preds(torch, oracle.bank, X, gids)
+    for name, o in (("card", on_card), ("CPU", on_cpu)):
+        got = member_preds(torch, o.bank, X, gids)
+        for member in ("linear", "forest"):
+            check(np.array_equal(got[member], want[member]),
+                  f"{name} reload: the {member} member equals the "
+                  f"original's bit for bit on a wave of {len(X)} rows")
+    lat = oracle.execute(wave_plans).latencies()
+    lat_card = on_card.execute(wave_plans).latencies()
+    lat_cpu = on_cpu.execute(wave_plans).latencies()
+    rel_card, rel_cpu = max_rel(np, lat_card, lat), max_rel(np, lat_cpu,
+                                                            lat_card)
+    check(rel_card <= RTOL_CARD_VS_CPU,
+          f"card reload answers the 64-request wave as the original "
+          f"(max rel diff {rel_card:.3e}, bitwise "
+          f"{bool(np.array_equal(lat_card, lat))})")
+    check(rel_cpu <= RTOL_CARD_VS_CPU,
+          f"CPU reload answers within rtol {RTOL_CARD_VS_CPU} of the card "
+          f"(max rel diff {rel_cpu:.3e})")
+    rep["artifact"] = {"bytes": path.stat().st_size, "save_s": save_s,
+                       "load_card_s": load_s, "schema": manifest[
+                           "schema_version"],
+                       "card_reload_max_rel": rel_card,
+                       "card_reload_bitwise": bool(np.array_equal(lat_card,
+                                                                  lat)),
+                       "cpu_reload_max_rel": rel_cpu}
+
+    # -- the unsharded answers every sharded run is held to ---------------
+    want = served(np, LatencyService(oracle, max_wave=64), reqs)
+
+    # -- thread-mode plane in process: one fused launch per slice ---------
+    plain_calls = {"n": 0}
+    plain_fns = ("predict_grouped_plain", "leaf_values_grouped_plain",
+                 "tree_mean_plain")
+    saved = {n: getattr(forest_eval, n) for n in plain_fns}
+
+    def counting(fn):
+        def run(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return run
+    with ShardPlane(workers=2, mode="thread") as tplane:
+        tsvc = LatencyService(oracle, max_wave=64, shard_plane=tplane)
+        check(tsvc._shard_gen is not None and not tsvc.stats.degraded,
+              "thread-mode plane loaded the bank")
+        for n in plain_fns:
+            setattr(forest_eval, n, counting(saved[n]))
+        try:
+            before, s0 = dict(forest_eval.launches), tplane.slices
+            got = served(np, tsvc, reqs)
+            delta = {k: v - before[k] for k, v in forest_eval.launches.items()}
+        finally:
+            for n in plain_fns:
+                setattr(forest_eval, n, saved[n])
+        slices = tplane.slices - s0
+    check(delta["predict_grouped"] == slices > 0
+          and delta["leaf_values_grouped"] == 0
+          and delta["leaf_values_grouped/global"] == 0
+          and plain_calls["n"] == 0,
+          f"thread mode: {delta['predict_grouped']} fused grouped launches "
+          f"for {slices} shard slices, {plain_calls['n']} plain calls")
+    rel_thread = max_rel(np, got, want)
+    check(rel_thread <= RTOL_CARD_VS_CPU,
+          f"thread-mode plane answers {len(reqs)} requests as the "
+          f"unsharded service (max rel diff {rel_thread:.3e})")
+    rep["thread_plane"] = {"slices": slices, "launches": delta,
+                           "max_rel": rel_thread}
+
+    # -- the same replay over HTTP, unsharded: the yardstick --------------
+    usvc = LatencyService(oracle, max_wave=64, cache_size=0)
+    ubg = BackgroundServer(usvc, host="127.0.0.1", port=0).start()
+    try:
+        r = replay(ubg.host, ubg.port, reqs, clients=8)
+    finally:
+        ubg.stop()
+    got = np.array([x["latency_ms"] if x else np.nan for x in r["results"]])
+    check(r["ok"] == len(reqs) and max_rel(np, got, want)
+          <= RTOL_CARD_VS_CPU,
+          f"unsharded replay: {r['ok']} of {len(reqs)} requests answered "
+          f"over HTTP (max rel diff {max_rel(np, got, want):.3e})")
+    rep["http_unsharded"] = {k: r[k] for k in (
+        "ok", "wall_s", "client_p50_ms", "client_p99_ms", "requests_per_s")}
+    print(f"unsharded replay over HTTP: p50 {r['client_p50_ms']:.3f} ms, "
+          f"p99 {r['client_p99_ms']:.3f} ms, {r['requests_per_s']:.1f} "
+          f"req/s, {len(reqs)} requests, 8 clients; card: {card}")
+
+    # -- two TCP shard workers on the card behind HTTP ---------------------
+    mib_before = gpu_memory_used_mib()
+    t0 = time.perf_counter()
+    pool = launch_tcp_workers(2, device="cuda")
+    plane = bg = None
+    try:
+        plane = ShardPlane(workers=0, mode="thread", remote=pool.addresses)
+        # no prediction cache: every replay executes on the plane
+        svc = LatencyService(oracle, max_wave=64, cache_size=0,
+                             shard_plane=plane,
+                             supervise=LifecycleConfig(endpoints={
+                                 i: (lambda i=i: pool.respawn(i))
+                                 for i in range(2)}))
+        boot_s = time.perf_counter() - t0
+        check(svc._shard_gen is not None and not svc.stats.degraded
+              and svc.supervisor is not None,
+              f"2 TCP shard workers loaded the bank on the card "
+              f"({boot_s:.1f} s with their start; "
+              f"{svc.stats.degraded_reason})")
+        bg = BackgroundServer(svc, host="127.0.0.1", port=0).start()
+
+        def http_run(tag, stats=True, **kw):
+            """One replay of ``reqs`` over HTTP; with ``stats``, each
+            worker's fused launches during it (from the worker process)."""
+            st0 = [w.stats() for w in plane.workers] if stats else []
+            s0 = plane.slices
+            r = replay(bg.host, bg.port, reqs, clients=8, **kw)
+            st1 = [w.stats() for w in plane.workers] if stats else []
+            got = np.array([x["latency_ms"] if x else np.nan
+                            for x in r["results"]])
+            check(r["ok"] == len(reqs) and not r["errors"],
+                  f"{tag}: {r['ok']} of {len(reqs)} requests answered over "
+                  f"HTTP ({len(r['errors'])} errors)")
+            rel = max_rel(np, got, want)
+            check(rel <= RTOL_CARD_VS_CPU,
+                  f"{tag}: answers as the unsharded service (max rel diff "
+                  f"{rel:.3e})")
+            out = {"ok": r["ok"], "wall_s": r["wall_s"],
+                   "client_p50_ms": r["client_p50_ms"],
+                   "client_p99_ms": r["client_p99_ms"],
+                   "requests_per_s": r["requests_per_s"], "max_rel": rel,
+                   "slices": plane.slices - s0,
+                   "worker_launches": [
+                       b["launches"]["predict_grouped"]
+                       - a["launches"]["predict_grouped"]
+                       for a, b in zip(st0, st1)],
+                   "worker_pids": [b["pid"] for b in st1],
+                   "worker_stats": st1}
+            print(f"{tag} over HTTP: p50 {out['client_p50_ms']:.3f} ms, "
+                  f"p99 {out['client_p99_ms']:.3f} ms, "
+                  f"{out['requests_per_s']:.1f} req/s, "
+                  f"{len(reqs)} requests, 8 clients; card: {card}")
+            return out
+
+        first = http_run("sharded replay")
+        check(sum(first["worker_launches"]) == first["slices"] > 0
+              and all(n > 0 for n in first["worker_launches"]),
+              f"the workers ran one fused grouped launch per slice on the "
+              f"card ({first['worker_launches']} for {first['slices']} "
+              "slices)")
+        first["contexts"] = check_worker_contexts(
+            "sharded replay", pool.procs, first.pop("worker_stats"),
+            mib_before, card)
+
+        # kill worker 1 while a replay is in flight; the supervisor
+        # respawns it and every request still answers (retried once)
+        old_pid = pool.procs[1].pid
+        base = svc.stats.requests
+        errs0, fb0 = svc.stats.shard_slice_errors, plane.fallback_rows
+        result = {}
+
+        def run():
+            result["r"] = http_run("replay with a worker killed",
+                                   stats=False, retry=RetryPolicy(
+                                       max_attempts=4, base_s=0.05,
+                                       retry_statuses=frozenset({500})))
+        t = threading.Thread(target=run)
+        t.start()
+        deadline = time.time() + 60
+        while svc.stats.requests < base + len(reqs) // 5 \
+                and time.time() < deadline:
+            time.sleep(0.001)
+        in_flight = t.is_alive()
+        pool.kill(1)
+        t.join(timeout=300)
+        check(in_flight and not t.is_alive() and "r" in result,
+              f"worker 1 (pid {old_pid}) killed while the replay was in "
+              f"flight ({svc.stats.requests - base} requests in)")
+        deadline = time.time() + 120
+        while plane.adoptions < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        check(plane.adoptions >= 1 and plane.alive_workers() == 2
+              and pool.procs[1].pid != old_pid,
+              f"the supervisor respawned worker 1 as pid "
+              f"{pool.procs[1].pid} ({plane.adoptions} adoption)")
+        killed = result["r"]
+        killed.update(slice_errors=svc.stats.shard_slice_errors - errs0,
+                      fallback_rows=plane.fallback_rows - fb0)
+        check(killed["slices"] > 0 and killed["fallback_rows"] > 0,
+              f"waves after the kill rode the live worker and the parent "
+              f"answered the dead one's rows ({killed['slices']} slices, "
+              f"{killed['fallback_rows']} fallback rows, "
+              f"{killed['slice_errors']} slice errors retried)")
+        after = http_run("replay after the respawn")
+        check(all(n > 0 for n in after["worker_launches"]),
+              f"the respawned worker serves its slices on the card "
+              f"({after['worker_launches']})")
+        after["contexts"] = check_worker_contexts(
+            "after the respawn", pool.procs, after.pop("worker_stats"),
+            mib_before, card)
+        rep["http"] = {"sharded": first, "killed": killed,
+                       "after_respawn": after,
+                       "lifecycle": plane.summary().get("lifecycle")}
+    finally:
+        if bg is not None:
+            bg.stop()
+        if plane is not None:
+            plane.close()
+        pool.close()
+
+    # -- float64-only members: every plane kind bit for bit ----------------
+    from repro_torch.api.oracle import LatencyOracle
+    o64 = LatencyOracle.fit(oracle.dataset, ProfetConfig(
+        members=("linear", "forest"), n_trees=60, seed=args.seed),
+        device="cuda")
+    Xb = np.concatenate([w[0] for w in waves])
+    gb = np.concatenate([w[1] for w in waves])
+    want64 = o64.bank.execute(Xb, gb)
+    pool = launch_tcp_workers(2, device="cuda")
+    try:
+        for kind, kw in (("thread", dict(workers=2, mode="thread")),
+                         ("spawn", dict(workers=2, mode="spawn")),
+                         ("tcp", dict(workers=0, mode="thread",
+                                      remote=pool.addresses))):
+            with ShardPlane(**kw) as p64:
+                got = p64.load(o64.bank).execute(Xb, gb)
+                check(np.array_equal(got, want64) and p64.slices == 2,
+                      f"float64 members, {kind} plane on the card: "
+                      f"{len(Xb)} rows bit for bit as the unsharded bank")
+    finally:
+        pool.close()
+    rep["float64_planes_rows"] = len(Xb)
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -373,7 +747,7 @@ def lm_reset_launches() -> None:
 
 
 def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
-    """Phases 5 and 6: one model's prefill step at full width on (4, 2048)
+    """Phases 6 and 7: one model's prefill step at full width on (4, 2048)
     tokens. Returns the model, its config, the kernel's inputs on the main
     path and the phase's report."""
     from repro_torch.configs import base as CB
@@ -696,7 +1070,7 @@ def lm_f32_rows(torch, flash_in, ssd_in) -> list:
 
 
 def lm_phases(torch, np, args, dev, report) -> list:
-    """Phases 5 to 9; returns the LM kernels' lines."""
+    """Phases 6 to 10; returns the LM kernels' lines."""
     runs = {}
     for arch, kernel in (("llama3.2-1b", "flash_attention"),
                          ("mamba2-130m", "ssd_scan")):
@@ -1170,7 +1544,11 @@ def main(argv=None) -> int:
           f"{sorted(k for k in trace['repo_kernels'] if k in FOREST_KERNELS)}")
     report["trace"] = trace
 
-    # -- 5.-9. the LM serving path -------------------------------------------
+    # -- 5. artifacts, sharded and HTTP serving ------------------------------
+    report["shard"] = shard_phase(torch, np, oracle, reqs, waves,
+                                  wave_plans, args, card)
+
+    # -- 6.-10. the LM serving path ------------------------------------------
     kernels += lm_phases(torch, np, args, dev, report)
 
     if args.out:

@@ -14,6 +14,15 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# torch's CPU elementwise math (exp, log, ...) runs through MKL's vector
+# math library, which sets itself up at its first call in a process. When
+# that first call comes from several OpenMP threads at once (a tensor above
+# torch's parallel grain), one thread's chunk can, in a few processes, come
+# back at a lower accuracy, enough to break the float32 parity of the plain
+# SSD scan. One call here, on one thread, sets the library up before any
+# parallel call can race it.
+torch.exp(torch.zeros(1))
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and

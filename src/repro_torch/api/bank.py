@@ -46,6 +46,20 @@ class BankUnsupportedError(RuntimeError):
     heterogeneous shapes); callers fall back to per-group execution."""
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A stacked tensor copied to a contiguous host numpy array."""
+    return np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def device_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: a view of ``a`` on the CPU
+    when ``a`` is writable, else a copy (read-only received buffers)."""
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
 class ModelBank:
     """Stacked ensembles over the trained pair set of one ``Profet``.
 
@@ -181,6 +195,104 @@ class ModelBank:
                    devices=devices, scalers=scalers, device=dev)
 
     # ------------------------------------------------------------------
+    # group-axis sharding
+    # ------------------------------------------------------------------
+    def split(self, groups: Sequence[Sequence[Tuple[str, str]]]
+              ) -> Tuple[Optional["ModelBank"], ...]:
+        """Slice the bank's group axis into sub-banks, one per entry of
+        ``groups`` (a partition of ``self.pairs``, e.g. from
+        ``planner.partition_pairs``). Each sub-bank carries only its
+        pairs' stacked tensors but the FULL device set and phase-2
+        scalers — phase-2 is per-device, not per-pair, so every shard
+        can interpolate any row it predicted. Slicing is pure gathering
+        (an index tensor on the bank's device for the forest and DNN
+        stacks, ``arr[idx]`` for the host arrays), so a sub-bank's answers
+        are bit-identical to the full bank's for the same rows on the
+        float64 members. Empty groups map to ``None``; pairs the bank
+        never trained raise ``BankUnsupportedError``."""
+        banks = []
+        for part in groups:
+            part = tuple(part)
+            if not part:
+                banks.append(None)
+                continue
+            missing = [p for p in part if p not in self.gid]
+            if missing:
+                raise BankUnsupportedError(
+                    f"cannot split: pairs not in bank: {missing}")
+            idx = np.array([self.gid[p] for p in part], np.int64)
+            tidx = torch.from_numpy(idx).to(self.device)
+            forest = None
+            if self.forest is not None:
+                forest = {k: v[tidx] for k, v in self.forest.items()}
+            lin_coef = None if self.lin_coef is None else self.lin_coef[idx]
+            dnn = None
+            if self.dnn is not None:
+                params, mu, sd, ys = self.dnn
+                dnn = ([{k: v[tidx] for k, v in layer.items()}
+                        for layer in params], mu[idx], sd[idx], ys[idx])
+            banks.append(ModelBank(
+                pairs=part, members=self.members,
+                n_features=self.n_features, forest=forest,
+                lin_coef=lin_coef, dnn=dnn, devices=self.devices,
+                scalers=self.scalers, device=self.device))
+        return tuple(banks)
+
+    # ------------------------------------------------------------------
+    # wire form (remote shard distribution)
+    # ------------------------------------------------------------------
+    def to_payload(self) -> dict:
+        """The bank as one self-contained wire value: every stacked tensor
+        copied off the device into an inline contiguous numpy array, ready
+        for the shard worker codecs (``repro_torch.serve.frames``).
+        ``device`` names the device the bank was built on; the receiving
+        worker places the arrays on its own (:meth:`from_payload`)."""
+        return {
+            "pairs": self.pairs,
+            "members": self.members,
+            "n_features": self.n_features,
+            "devices": self.devices,
+            "scalers": {k: tuple(np.ascontiguousarray(a) for a in v)
+                        for k, v in self.scalers.items()},
+            "device": str(self.device),
+            "forest": (None if self.forest is None else
+                       {k: host_array(v) for k, v in self.forest.items()}),
+            "lin_coef": (None if self.lin_coef is None
+                         else np.ascontiguousarray(self.lin_coef)),
+            "dnn": (None if self.dnn is None
+                    else ([{k: host_array(v) for k, v in layer.items()}
+                           for layer in self.dnn[0]],
+                          np.ascontiguousarray(self.dnn[1]),
+                          np.ascontiguousarray(self.dnn[2]),
+                          np.ascontiguousarray(self.dnn[3]))),
+        }
+
+    @classmethod
+    def from_payload(cls, d: dict, device="cuda") -> "ModelBank":
+        """Rebuild a bank around the decoded wire value, its forest and DNN
+        stacks placed on ``device``. The codec hands arrays back as
+        read-only views over the received frame body; the host arrays
+        (linear coefficients, z-score stats, scalers) stay those views,
+        the stacks are copied to ``device``."""
+        dev = resolve_device(device)
+        pairs = tuple(tuple(p) for p in d["pairs"])
+        forest = None
+        if d["forest"] is not None:
+            forest = {k: device_tensor(v, dev) for k, v in d["forest"].items()}
+        dnn = None
+        if d["dnn"] is not None:
+            params, mu, sd, ys = d["dnn"]
+            dnn = ([{k: device_tensor(v, dev) for k, v in layer.items()}
+                    for layer in params], np.asarray(mu), np.asarray(sd),
+                   np.asarray(ys))
+        return cls(pairs=pairs, members=tuple(d["members"]),
+                   n_features=int(d["n_features"]), forest=forest,
+                   lin_coef=d["lin_coef"], dnn=dnn,
+                   devices=tuple(d["devices"]),
+                   scalers={k: tuple(v) for k, v in d["scalers"].items()},
+                   device=dev)
+
+    # ------------------------------------------------------------------
     # stacked execution
     # ------------------------------------------------------------------
     def execute(self, X: np.ndarray, gids: np.ndarray) -> np.ndarray:
@@ -199,8 +311,8 @@ class ModelBank:
         if "forest" in self.members:
             f = self.forest
             preds.append(forest_eval.predict_grouped(
-                torch.from_numpy(X).to(self.device),
-                torch.from_numpy(gids).to(self.device), f["feat"], f["thr"],
+                device_tensor(X, self.device),
+                device_tensor(gids, self.device), f["feat"], f["thr"],
                 f["left"], f["right"], f["value"], f["depth"]).cpu().numpy())
             self.forest_launches += 1
         if "dnn" in self.members:

@@ -65,6 +65,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -72,7 +73,8 @@ import torch
 from repro_torch.kernels import _build
 
 # launches of each kernel route in this process (the plain versions count
-# none)
+# none); counted under _LOCK, as threads of one process (thread-mode shard
+# workers) launch concurrently
 launches: Dict[str, int] = {"leaf_values_grouped": 0,
                             "leaf_values_grouped/global": 0,
                             "leaf_values": 0, "leaf_values/global": 0,
@@ -248,6 +250,8 @@ def resident_blocks(grouped: bool, smem: int, device, *,
 
 
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+# guards _COUNTERS' check-then-grow and the launch counts
+_LOCK = threading.Lock()
 
 
 def tile_counters(m: int, plan: TilePlan, device,
@@ -258,15 +262,18 @@ def tile_counters(m: int, plan: TilePlan, device,
     stream), kept across calls and grown to the tiles asked for when they
     outnumber it (the buffer it replaces is freed in that stream's order,
     after the launches queued on it); a launch leaves its counters at
-    zero."""
+    zero. Thread-safe: threads of one process that launch on one stream
+    (thread-mode shard workers on one card) never see the buffer of
+    another thread's growth half made."""
     device = torch.device(device)
     key = (device.type, device.index, stream)
     tiles = _cdiv(m, plan.R)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = _COUNTERS[key] = torch.zeros(tiles, dtype=torch.int32,
-                                           device=device)
-    return buf
+    with _LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < tiles:
+            buf = _COUNTERS[key] = torch.zeros(tiles, dtype=torch.int32,
+                                               device=device)
+        return buf
 
 
 def _launch(fn: str, key: str, X, T: int, *args,
@@ -284,13 +291,16 @@ def _launch(fn: str, key: str, X, T: int, *args,
         return out
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # held until the launch is queued: a buffer another thread's growth
+        # replaced must not go back to the allocator before this launch
+        counters = None if mean is None else tile_counters(
+            m, mean, X.device, stream)
         outs = (leaves.data_ptr(),) if mean is None else (
-            leaves.data_ptr(),
-            tile_counters(m, mean, X.device, stream).data_ptr(),
-            out.data_ptr())
+            leaves.data_ptr(), counters.data_ptr(), out.data_ptr())
         rc = getattr(library(), fn)(*args, *outs, stream)
     _build.raise_on(rc, fn)
-    launches[key] += 1
+    with _LOCK:
+        launches[key] += 1
     return out
 
 
@@ -523,7 +533,8 @@ def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
             vals.data_ptr(), T, m, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, "forest_tree_mean")
-    launches["tree_mean"] += 1
+    with _LOCK:
+        launches["tree_mean"] += 1
     return out
 
 

@@ -7,14 +7,19 @@ wave/fusion/cache telemetry.
 
 Default is a small fast oracle (2 devices, deterministic members);
 ``--full`` fits the paper's 4-device grid with all three members
-(``n_trees=60``, ``--epochs 150`` DNN epochs). ``--device cpu`` runs the
-plain PyTorch path on the host.
+(``n_trees=60``, ``--epochs 150`` DNN epochs), cached through the versioned
+artifact store (``--cache``): a rerun with the same settings loads it, on
+any device, instead of refitting. ``--device cpu`` runs the plain PyTorch
+path on the host.
 """
 import argparse
+import pathlib
 import sys
 
 
-def _fit_oracle(full: bool, epochs: int, seed: int, device: str):
+def _fit_oracle(full: bool, cache: pathlib.Path, epochs: int, seed: int,
+                device: str):
+    from repro_torch import api
     from repro_torch.api.oracle import LatencyOracle
     from repro_torch.core import workloads
     from repro_torch.core.predictor import ProfetConfig
@@ -22,7 +27,10 @@ def _fit_oracle(full: bool, epochs: int, seed: int, device: str):
     if full:
         cfg = ProfetConfig(members=("linear", "forest", "dnn"), n_trees=60,
                            dnn_epochs=epochs, seed=seed)
-        return LatencyOracle.fit(workloads.generate(), cfg, device=device)
+        return api.fit_or_load(
+            cache, cfg, device=device,
+            fit_fn=lambda: LatencyOracle.fit(workloads.generate(), cfg,
+                                             device=device))
     ds = workloads.generate(devices=("T4", "V100"),
                             models=("LeNet5", "AlexNet", "ResNet18"))
     cfg = ProfetConfig(members=("linear", "forest"), n_trees=30, seed=seed)
@@ -40,7 +48,11 @@ def main(argv=None):
                     help="how many times the stream is replayed (replay 2+ "
                          "exercises the cache)")
     ap.add_argument("--full", action="store_true",
-                    help="paper 4-device grid + DNN member")
+                    help="paper 4-device grid + DNN member (slow fit, "
+                         "cached)")
+    ap.add_argument("--cache",
+                    default="results/torch_serve_latency_oracle.pkl",
+                    help="oracle artifact path (--full only)")
     ap.add_argument("--epochs", type=int, default=150)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -48,7 +60,8 @@ def main(argv=None):
 
     from repro_torch.serve import LatencyService, synthetic_requests
 
-    oracle = _fit_oracle(args.full, args.epochs, args.seed, args.device)
+    oracle = _fit_oracle(args.full, pathlib.Path(args.cache), args.epochs,
+                         args.seed, args.device)
     reqs = synthetic_requests(oracle, n=args.requests, seed=args.seed)
     service = LatencyService(oracle, max_wave=args.wave,
                              cache_size=args.cache_size)

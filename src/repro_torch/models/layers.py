@@ -11,9 +11,10 @@ to the activations' dtype where they use it. Parameters are float32
 port serves only: no parameter requires grad.
 
 Out of this port so far (``ROADMAP.md``): ``local_attention`` (sliding
-window, the hybrid family), cross attention (vlm) and the loss; the
-reference's ``_sdpa`` served only them and ``causal_attention``, which
-here always runs the flash kernel. ``constrain`` and ``remat_wrap`` have
+window, the hybrid family), cross attention (vlm) and the loss.
+``causal_attention`` runs the flash kernel on the card and, on the CPU,
+the reference's own two regimes (``_sdpa`` and online-softmax blocks) with
+their roundings. ``constrain`` and ``remat_wrap`` have
 no meaning on one card without a mesh and are dropped.
 """
 from __future__ import annotations
@@ -139,21 +140,80 @@ def _repeat_kv(k, num_heads):
 # ---------------------------------------------------------------------------
 
 
-def causal_attention(q, k, v, *, backend: str = "auto"):
-    """Causal GQA attention through the flash-attention kernel (its plain
-    version on the CPU). q: (B,S,H,hd); k, v: (B,S,KV,hd).
+# the reference's causal_attention: _sdpa up to this many positions, blocks
+# of BLOCK_Q queries against BLOCK_KV keys above
+BLOCK_Q, BLOCK_KV = 512, 1024
 
-    The reference has two regimes, ``_sdpa`` for S <= 1024 and
-    online-softmax blocks above; both round the probabilities to the
-    activations' dtype before P.V (the normalised ones in ``_sdpa``, the
-    unnormalised ones of each block in the blocked path). The kernel
-    serves any S; in bfloat16 it rounds the unnormalised probabilities of
-    each 64-key tile to bfloat16 before P.V, as the blocked path does, and
-    keeps the row sum and accumulator in float32. The plain version (and
-    the Pallas kernel) keep the probabilities in float32, so in bfloat16
-    the port differs from the reference's ``forward`` by more than
-    rounding noise; in float32 all agree."""
+
+def causal_attention(q, k, v, *, backend: str = "auto"):
+    """Causal GQA attention. q: (B,S,H,hd); k, v: (B,S,KV,hd).
+
+    On the card, and wherever ``backend`` names one, it runs the
+    flash-attention kernel's wrapper (``ops.flash_attention``). In
+    bfloat16 the kernel rounds the unnormalised probabilities of each
+    64-key tile to bfloat16 before P.V and keeps scores, row sums and the
+    accumulator in float32; its plain version (``backend="torch"``, like
+    the Pallas kernel) keeps the probabilities in float32 too.
+
+    On the CPU with ``backend="auto"``, the model's plain path, it follows
+    the reference's ``causal_attention`` op for op
+    (:func:`reference_attention`), rounding where it rounds: the scores
+    come out of the activations' dtype product, and the probabilities are
+    cast to it before P.V. In float32 the two paths agree to rounding; in
+    bfloat16 only this one follows the reference's rounding order."""
+    if backend == "auto" and not q.is_cuda:
+        return reference_attention(q, k, v)
     return ops.flash_attention(q, k, v, backend=backend)
+
+
+def _sdpa(q, k, v, mask, scale):
+    """The reference's plain attention (``layers._sdpa``), k and v already
+    repeated to H heads; mask: (Sq, Sk) bool."""
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+
+
+def reference_attention(q, k, v):
+    """The reference's ``causal_attention``: ``_sdpa`` while S fits one
+    block, else an online softmax over blocks of :data:`BLOCK_Q` queries
+    and :data:`BLOCK_KV` keys (every key block, masked ones included), with
+    the scores of each block from the activations' dtype product and its
+    unnormalised probabilities rounded to that dtype before P.V. A last
+    block may be short (the reference's blocks divide S)."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    if S <= max(BLOCK_Q, BLOCK_KV):
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        return _sdpa(q, k, v, mask, scale)
+    pos = torch.arange(S, device=q.device)
+    out = []
+    for q0 in range(0, S, BLOCK_Q):
+        qi, qp = q[:, q0:q0 + BLOCK_Q], pos[q0:q0 + BLOCK_Q]
+        acc = torch.zeros((B, H, qi.shape[1], hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, H, qi.shape[1]), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        for k0 in range(0, S, BLOCK_KV):
+            s = torch.einsum("bqhk,bshk->bhqs", qi,
+                             k[:, k0:k0 + BLOCK_KV]).float() * scale
+            s = torch.where(qp[:, None] >= pos[None, k0:k0 + BLOCK_KV], s,
+                            -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqs,bshk->bhqk", p.to(qi.dtype),
+                v[:, k0:k0 + BLOCK_KV]).float()
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out.append(o.movedim(1, 2).to(q.dtype))
+    return torch.cat(out, dim=1)
 
 
 def decode_attention(q, cache_k, cache_v, cur_len):
@@ -244,10 +304,22 @@ class MLPParams(nn.Module):
             dense_init_(w, generator)
 
 
+def silu(x):
+    """SiLU. On the card ``F.silu`` (one rounding to x's dtype). On the
+    CPU, the model's plain path, the reference's rounding order:
+    ``jax.nn.silu`` is ``x * sigmoid(x)``, and XLA computes a bfloat16
+    sigmoid as ``1 / (1 + exp(-x))`` rounding after every op, so each op
+    here runs in x's dtype (in bfloat16 the two orders round many elements
+    differently; in float32 they agree to rounding)."""
+    if x.is_cuda:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def mlp_apply(p, x):
     g = x @ p.wi.to(x.dtype)
     u = x @ p.wu.to(x.dtype)
-    return (F.silu(g) * u) @ p.wd.to(x.dtype)
+    return (silu(g) * u) @ p.wd.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -69,11 +69,22 @@ class DenseLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _add_norm(x, a, scale, eps):
+    """``x + a`` for the residual stream, rounded to x's dtype, and the RMS
+    norm of that sum taken from its float32 value: the reference's
+    compiled block fuses the add into the norm's float32 cast and keeps
+    the sum's excess precision there (XLA's default), so in bfloat16 the
+    norm sees the unrounded sum while the residual carries the rounded
+    one. In float32 this is ``x + a`` and its norm."""
+    s = x.float() + a.float()
+    return s.to(x.dtype), L.rms_norm(s, scale, eps).to(x.dtype)
+
+
 def _block_apply(p, x, cfg, positions, backend):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    x = x + L.attention_apply(p.attn, h, cfg, positions=positions,
-                              backend=backend)
-    h = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    x, h = _add_norm(x, L.attention_apply(p.attn, h, cfg, positions=positions,
+                                          backend=backend), p.ln2,
+                     cfg.norm_eps)
     return x + L.mlp_apply(p.ffn, h)
 
 
@@ -118,8 +129,7 @@ def decode_step(model: DenseLM, cfg: ModelConfig, cache, tokens, cur_len):
         a, ck, cv = L.attention_decode_apply(
             blk.attn, h, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
             cur_len=cur_len)
-        x = x + a
-        h = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+        x, h = _add_norm(x, a, blk.ln2, cfg.norm_eps)
         x = x + L.mlp_apply(blk.ffn, h)
         ks.append(ck)
         vs.append(cv)

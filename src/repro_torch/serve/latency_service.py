@@ -34,10 +34,9 @@ On top of the executor the service adds:
     + per-epoch), epoch swaps/invalidations, errors, wall time, and p50/p99
     per-request service latency.
 
-The queue, cache, and swap paths are lock-guarded so a front end can
-submit from one thread while another drains waves. The shard plane and
-worker supervision of the reference (``shard_plane=``, ``supervise=``)
-come with a later slice.
+The queue, cache, and swap paths are lock-guarded so an async transport
+(``repro_torch.serve.transport``) can submit from its event loop while a worker
+thread drains waves.
 """
 from __future__ import annotations
 
@@ -91,7 +90,8 @@ class LatencyService:
     def __init__(self, oracle: LatencyOracle, *, max_wave: int = 64,
                  cache_size: int = 4096, epoch: Optional[str] = None,
                  warmup: bool = True, warmup_rows: Optional[int] = None,
-                 faults=None, breaker: Optional[CircuitBreaker] = None):
+                 faults=None, breaker: Optional[CircuitBreaker] = None,
+                 shard_plane=None, supervise=False):
         self.oracle = oracle
         self.max_wave = int(max_wave)
         self.cache_size = int(cache_size)
@@ -129,6 +129,14 @@ class LatencyService:
         # wave with its finished requests. Never on the submit path, and
         # exceptions are swallowed — observers must not break serving.
         self._observer = None
+        # multi-worker shard plane (repro_torch.serve.shard.ShardPlane): when
+        # set, every banked wave executes through a ShardedBank generation
+        # instead of the oracle's own bank — scattered by (anchor, target)
+        # group across the plane's workers, gathered back in row order,
+        # bit-identical answers. The service owns generation lifecycle:
+        # one per oracle epoch, swapped all-or-nothing in oracle_refreshed.
+        self.shard_plane = shard_plane
+        self._shard_gen = None
         if self._warmup_enabled:
             # a warm-up that dies at construction must not take the
             # service down with it: serve degraded on the per-group
@@ -141,6 +149,40 @@ class LatencyService:
                 self._mark_degraded(
                     f"warm-up failed at construction "
                     f"({type(e).__name__}: {e}); serving per-group")
+        if self.shard_plane is not None:
+            # boot-time generation load follows the same degrade-not-crash
+            # rule as warm-up: a failed load leaves _shard_gen unset and
+            # waves execute through the oracle's own (unsharded) bank
+            try:
+                self._shard_gen = self._load_generation(oracle)
+            except Exception as e:
+                with self._lock:
+                    self.stats.degraded = True
+                    self.stats.degraded_reason = (
+                        f"shard-plane load failed at construction "
+                        f"({type(e).__name__}: {e}); serving unsharded")
+        # self-healing supervision (repro_torch.serve.lifecycle): leases every
+        # worker and respawns/re-adopts dead ones. supervise=True uses
+        # defaults, or pass a LifecycleConfig. The supervisor attaches to
+        # the plane (plane.close() stops it) and is exposed here for
+        # transport telemetry.
+        self.supervisor = None
+        if self.shard_plane is not None and supervise:
+            from repro_torch.serve.lifecycle import (LifecycleConfig,
+                                               WorkerSupervisor)
+            cfg = supervise if isinstance(supervise, LifecycleConfig) \
+                else None
+            self.supervisor = WorkerSupervisor(
+                self.shard_plane, config=cfg, faults=faults).start()
+
+    def _load_generation(self, oracle: LatencyOracle):
+        """Split-and-load ``oracle``'s bank onto the shard plane; returns
+        the new ShardedBank generation, or None when the oracle has no
+        bank (unbankable models serve per-group, unsharded)."""
+        bank = oracle.bank
+        if bank is None:
+            return None
+        return self.shard_plane.load(bank)
 
     def _warm(self, oracle: LatencyOracle) -> None:
         faults_mod.fire(self._faults, faults_mod.SITE_WARMUP)
@@ -168,7 +210,7 @@ class LatencyService:
     def set_observer(self, callback) -> None:
         """Register a wave observer: ``callback(completed)`` runs after
         each wave with that wave's finished :class:`ServiceRequest` list
-        (results and errors both included). Used by ``repro.calibrate`` to
+        (results and errors both included). Used by ``repro_torch.calibrate`` to
         mirror live traffic onto shadow candidates without touching the
         serving path; any exception it raises is swallowed."""
         self._observer = callback
@@ -222,9 +264,21 @@ class LatencyService:
         draining on the old oracle/bank meanwhile."""
         if oracle is not None and self._warmup_enabled:
             self._warm(oracle)
+        new_gen = old_gen = None
+        if oracle is not None and self.shard_plane is not None:
+            # load the incoming bank's generation onto every worker BEFORE
+            # taking the lock: the swap is all-or-nothing (a failed load
+            # raises here, incumbent generation and oracle untouched), and
+            # no wave can ever mix epochs across shards — waves admitted
+            # before the commit below hold the old generation, waves after
+            # it hold the new one, and the old generation is only dropped
+            # once its in-flight waves drain.
+            new_gen = self._load_generation(oracle)
         with self._lock:
             if oracle is not None:
                 self.oracle = oracle
+                if self.shard_plane is not None:
+                    old_gen, self._shard_gen = self._shard_gen, new_gen
             epoch = (fingerprint if fingerprint is not None
                      else self.oracle.fingerprint)
             # a refresh means the model changed even when the label did
@@ -255,6 +309,9 @@ class LatencyService:
                 self.stats.degraded_reason = None
         if oracle is not None:
             self.breaker.reset()
+            if self.shard_plane is not None:
+                self.shard_plane.breaker.reset()
+                self.shard_plane.retire(old_gen)
         return epoch
 
     # ------------------------------------------------------------------
@@ -285,7 +342,8 @@ class LatencyService:
             f"({spent_ms:.1f} ms since submission)")
 
     def _run_wave(self, wave: Sequence[ServiceRequest],
-                  oracle: LatencyOracle, epoch: str) -> None:
+                  oracle: LatencyOracle, epoch: str,
+                  sharded=None) -> None:
         plans, pending = [], []
         now = time.perf_counter()
         for sr in wave:
@@ -336,7 +394,7 @@ class LatencyService:
             try:
                 faults_mod.fire(self._faults, faults_mod.SITE_EXECUTE)
                 batch = oracle.execute(plans, epoch=epoch,
-                                       banked=self._banked)
+                                       banked=self._banked, bank=sharded)
             except Exception as e:
                 # an executor-level failure (bug, resource exhaustion) must
                 # not escape run(): it would kill a transport's pump task
@@ -364,6 +422,11 @@ class LatencyService:
                     f"serving per-group")
             with self._lock:
                 self.stats.fused_calls += batch.fused_calls
+                if sharded is not None:
+                    # plane counters are lifetime totals; mirror them so
+                    # /statsz reports without reaching into the plane
+                    self.stats.shard_fallback_rows = \
+                        self.shard_plane.fallback_rows
             errs = batch.errors or ((None,) * len(batch.results))
             for (sr, key), res, err in zip(pending, batch.results, errs):
                 if err is not None:
@@ -391,11 +454,16 @@ class LatencyService:
         self._notify_observer(wave)
 
     def _next_wave(self):
-        """Atomically admit the next wave under the current oracle epoch."""
+        """Atomically admit the next wave under the current oracle epoch,
+        holding a reference on the current shard generation (if any) so a
+        concurrent swap cannot drop it out from under the wave."""
         with self._lock:
             wave = self.queue[:self.max_wave]
             del self.queue[:self.max_wave]
-            return wave, self.oracle, self._epoch
+            sharded = self._shard_gen if (wave and self._banked) else None
+            if sharded is not None:
+                self.shard_plane.acquire(sharded)
+            return wave, self.oracle, self._epoch, sharded
 
     def run_once(self) -> int:
         """Admit and execute ONE wave; returns how many requests it
@@ -403,10 +471,14 @@ class LatencyService:
         so each wave's responses flush as soon as it completes instead of
         waiting for a full drain."""
         t0 = time.perf_counter()
-        wave, oracle, epoch = self._next_wave()
+        wave, oracle, epoch, sharded = self._next_wave()
         if not wave:
             return 0
-        self._run_wave(wave, oracle, epoch)
+        try:
+            self._run_wave(wave, oracle, epoch, sharded)
+        finally:
+            if sharded is not None:
+                self.shard_plane.release(sharded)
         with self._lock:
             self.stats.wall_s += time.perf_counter() - t0
         return len(wave)

@@ -80,3 +80,25 @@ def lm_pair(arch: str, dtype: str = "float32", seed: int = 0, **overrides):
     model = lm_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                           device="cpu")
     return jcfg, params, tcfg, model
+
+
+def dataset_from_repro(ds):
+    """The port's ``Dataset`` holding the same measurements as the
+    reference's ``ds`` (same devices, cases and order)."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core import workloads as tw
+    return tw.Dataset(
+        devices=tuple(ds.devices), cases=list(ds.cases),
+        measurements={d: {c: tsim.Measurement(**dataclasses.asdict(m))
+                          for c, m in meas.items()}
+                      for d, meas in ds.measurements.items()})
+
+
+def carry_oracle(ref_oracle, device="cpu"):
+    """The port's ``LatencyOracle`` on ``device`` holding the reference
+    oracle's fitted model and dataset."""
+    from repro_torch.api.oracle import LatencyOracle as TorchOracle
+    from repro_torch.convert import profet_from_numpy
+    return TorchOracle(profet_from_numpy(state_from_repro(ref_oracle.profet),
+                                         device=device),
+                       dataset_from_repro(ref_oracle.dataset))

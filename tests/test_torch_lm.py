@@ -2,15 +2,17 @@
 ``convert``) against the reference's ``repro.models`` on the same
 parameters and tokens: ``forward``, the prefill step and ``decode_step``
 for the dense (llama3.2-1b) and ssm (mamba2-130m) families at their SMOKE
-sizes.
+sizes, and the rest of the dense family (granite-3-2b, codeqwen1.5-7b,
+qwen1.5-110b: qkv bias, untied embeddings, MHA) at theirs.
 
 Parameters come from ``repro.models.model.init`` and are carried across
 by ``lm_from_numpy``; tokens are made with numpy from a seed. Bars: in
 float32, logits atol 1e-4 / rtol 1e-4 and the same next token; in
-bfloat16, logits within 2e-2 x max |logits|. bfloat16 is looser because
-the reference's ``_sdpa`` rounds the attention probabilities to bf16 and
-the flash kernel (like the Pallas one) keeps them f32, and because the two
-frameworks round bf16 at other places.
+bfloat16, logits within 2e-2 x max |logits|. On the CPU the port's model
+rounds where the reference's compiled model rounds (its attention regimes,
+XLA's bfloat16 sigmoid, the float32 sum the fused add + norm sees), so in
+bfloat16 most of these runs agree bit for bit; the bar leaves room for
+the fusions that do not.
 """
 import dataclasses
 
@@ -115,6 +117,79 @@ def test_decode_step_matches_reference(arch, per_slot, dtype):
         if dtype == "float32":
             np.testing.assert_array_equal(
                 nxt.numpy(), np.asarray(jnp.argmax(want[:, -1:], -1)))
+
+
+# the rest of the dense family at SMOKE sizes: granite (llama's layout, 3
+# layers), codeqwen (MHA, qkv bias, untied embeddings), qwen1.5 (GQA, qkv
+# bias, untied embeddings)
+DENSE_FAMILY = ["granite_3_2b", "codeqwen1_5_7b", "qwen1_5_110b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMILY)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_family_forward_and_prefill_step_match_reference(arch, dtype):
+    jcfg, params, tcfg, model = lm_pair(arch, dtype)
+    toks = _tokens(jcfg.vocab_size, 2, 24)
+    want, _ = JM.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = M.forward(model, tcfg, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _logits_close(got, want, dtype)
+    if dtype == "float32":
+        nxt = make_prefill_step(tcfg)(model, {"tokens":
+                                              torch.from_numpy(toks)})
+        jnxt = jax_prefill_step(jcfg)(params, {"tokens": jnp.asarray(toks)})
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMILY)
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_family_decode_step_matches_reference(arch, per_slot, dtype):
+    """Teacher-forced decoding as :func:`test_decode_step_matches_reference`
+    runs it: float32 caches in float32, the default bfloat16 caches in
+    bfloat16."""
+    jcfg, params, tcfg, model = lm_pair(arch, dtype, seed=2)
+    B, T, max_len = 2, 6, 16
+    toks = _tokens(jcfg.vocab_size, B, T, seed=3)
+    jcache, _ = JM.init_cache(jcfg, B, max_len)
+    cache = M.init_cache(tcfg, B, max_len, device="cpu")
+    if dtype == "float32":
+        jcache = {k: v.astype(jnp.float32) for k, v in jcache.items()}
+        cache = {k: v.float() for k, v in cache.items()}
+    jstep = jax.jit(lambda p, c, t, n: JM.decode_step(p, jcfg, c, t, n))
+    offset = np.array([0, 3], np.int32)
+    for t in range(T):
+        cur = t + offset if per_slot else np.int32(t)
+        want, jcache = jstep(params, jcache, jnp.asarray(toks[:, t:t + 1]),
+                             jnp.asarray(cur))
+        got, cache = M.decode_step(model, tcfg, cache,
+                                   torch.from_numpy(toks[:, t:t + 1]),
+                                   torch.as_tensor(cur))
+        _logits_close(got, want, dtype)
+        if dtype == "float32":
+            np.testing.assert_array_equal(
+                got[:, -1].argmax(-1).numpy(),
+                np.asarray(jnp.argmax(want[:, -1], -1)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("arch,layers", [("granite_3_2b", 3),
+                                         ("llama3_2_1b", 2),
+                                         ("llama3_2_1b", 6)])
+def test_bf16_logit_gap_stays_inside_the_bar_with_depth(arch, layers, seed):
+    """The bf16 forward's max |port - reference| / max |reference| at
+    growing depth and three seeds (printed; ``-s`` shows it) stays inside
+    the 2e-2 bar of :func:`_logits_close`."""
+    jcfg, params, tcfg, model = lm_pair(arch, "bfloat16", seed=seed,
+                                        num_layers=layers)
+    toks = _tokens(jcfg.vocab_size, 2, 24)
+    want, _ = JM.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = M.forward(model, tcfg, {"tokens": torch.from_numpy(toks)})
+    want = np.asarray(want.astype(jnp.float32))
+    gap = float(np.abs(got.float().numpy() - want).max()
+                / np.abs(want).max())
+    print(f"bf16 gap {arch} {layers} layers seed {seed}: {gap:.4f}")
+    assert gap <= 2e-2
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"])
