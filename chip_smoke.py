@@ -49,7 +49,30 @@ seed 0) on the card, then
      holds a CUDA context (its pid in ``nvidia-smi``); kills worker 1
      mid-replay (requests riding it retry once), waits for the supervisor
      to respawn it and serves again; then float64-only oracles through
-     thread, spawn and TCP planes, bit for bit as the unsharded bank.
+     thread, spawn and TCP planes, bit for bit as the unsharded bank;
+ 11. (run after phase 5, on the phase-1 oracle) live calibration:
+     ``serve_calibrated``'s drift-injection replay over HTTP (4 clients,
+     rounds of 120 ``synthetic_requests``, the first pair's truth x1.6
+     from round 1, noise 0.01; ``Calibrator`` at the CLI's configuration,
+     stepping every 0.05 s in its thread, with a ``CalibrationStore``):
+     the reference's 6 rounds, then on until the promotion and 2 rounds
+     after it (at most 20). Every request answers; drift, a refit, a
+     passed canary and a promotion happen mid-traffic; the service ends
+     on the ``+cal`` epoch with the drifted pair's rolling MAPE below the
+     trigger; the promoted candidate's bank runs fused grouped launches
+     and no forest wrapper takes its plain version. Prints each round's
+     p50 / p99 / req/s beside what the calibrator had in flight (refit,
+     canary, swap), and the refit and canary seconds and the swap and
+     warm-up ms. ``CalibrationStore.recover`` gives the promoted epoch on
+     the card and on the CPU, linear and forest members bit for bit; then
+     ``build_candidate`` on the frozen buffer, on the card and on a CPU
+     copy of the oracle: linear and forest members bit for bit, each
+     candidate's held-out MAPE on the drifted pair below the trigger (the
+     DNN member trains on each device, so it is not compared bitwise);
+ 12. the paper's baselines on the paper grid's split (20% held out, seed
+     0): ``MLPredictModel(epochs=300, seed=0)`` fitted on the card and on
+     the CPU, held-out MAPE per target device within 3 points of each
+     other; Paleo and Habitat on the host, their MAPE printed.
 
 The LM serving path, at the full published widths and depths, random
 float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
@@ -489,36 +512,22 @@ def shard_phase(torch, np, oracle, reqs, waves, wave_plans, args,
     want = served(np, LatencyService(oracle, max_wave=64), reqs)
 
     # -- thread-mode plane in process: one fused launch per slice ---------
-    plain_calls = {"n": 0}
-    plain_fns = ("predict_grouped_plain", "leaf_values_grouped_plain",
-                 "tree_mean_plain")
-    saved = {n: getattr(forest_eval, n) for n in plain_fns}
-
-    def counting(fn):
-        def run(*a, **k):
-            plain_calls["n"] += 1
-            return fn(*a, **k)
-        return run
     with ShardPlane(workers=2, mode="thread") as tplane:
         tsvc = LatencyService(oracle, max_wave=64, shard_plane=tplane)
         check(tsvc._shard_gen is not None and not tsvc.stats.degraded,
               "thread-mode plane loaded the bank")
-        for n in plain_fns:
-            setattr(forest_eval, n, counting(saved[n]))
-        try:
-            before, s0 = dict(forest_eval.launches), tplane.slices
-            got = served(np, tsvc, reqs)
-            delta = {k: v - before[k] for k, v in forest_eval.launches.items()}
-        finally:
-            for n in plain_fns:
-                setattr(forest_eval, n, saved[n])
+        before, s0 = dict(forest_eval.launches), tplane.slices
+        plain0 = sum(forest_eval.plain_calls.values())
+        got = served(np, tsvc, reqs)
+        delta = {k: v - before[k] for k, v in forest_eval.launches.items()}
+        plain = sum(forest_eval.plain_calls.values()) - plain0
         slices = tplane.slices - s0
     check(delta["predict_grouped"] == slices > 0
           and delta["leaf_values_grouped"] == 0
           and delta["leaf_values_grouped/global"] == 0
-          and plain_calls["n"] == 0,
+          and plain == 0,
           f"thread mode: {delta['predict_grouped']} fused grouped launches "
-          f"for {slices} shard slices, {plain_calls['n']} plain calls")
+          f"for {slices} shard slices, {plain} plain calls")
     rel_thread = max_rel(np, got, want)
     check(rel_thread <= RTOL_CARD_VS_CPU,
           f"thread-mode plane answers {len(reqs)} requests as the "
@@ -687,6 +696,306 @@ def shard_phase(torch, np, oracle, reqs, waves, wave_plans, args,
         pool.close()
     rep["float64_planes_rows"] = len(Xb)
     return rep
+
+
+# ---------------------------------------------------------------------------
+# live calibration (phase 11) and the paper's baselines (phase 12)
+# ---------------------------------------------------------------------------
+
+# serve_calibrated's defaults: the drift-injection replay and the control
+# loop's configuration
+CAL_ROUNDS, CAL_REQUESTS, CAL_CLIENTS, CAL_WAVE = 6, 120, 4, 32
+CAL_DRIFT, CAL_ONSET, CAL_NOISE, CAL_INTERVAL = 1.6, 1, 0.01, 0.05
+CAL_TRIGGER = 10.0
+# past the reference's 6 rounds the replay goes on until the promotion and
+# CAL_AFTER rounds after it, at most CAL_MAX_ROUNDS in all: on the paper
+# grid the drifted pair gets ~6 measured requests a round, and the refit
+# waits for 24 of them scored after the drift was detected
+CAL_AFTER, CAL_MAX_ROUNDS = 2, 20
+# MLPredict on the card against its CPU fit: the percentage-point band of
+# tests/test_torch_fit_mape.py, here two-sided, per target device
+MLPREDICT_BAND_PTS = 3.0
+
+
+def round_kind(rec, onset, spans, promoted_at) -> str:
+    """What the calibrator had in flight during one replay round: the
+    kinds of work whose span overlaps the round's, or its phase."""
+    busy = sorted({kind for kind, t0, t1 in spans
+                   if t0 < rec["t1"] and t1 > rec["t0"]})
+    if busy:
+        return "+".join(busy)
+    if rec["round"] < onset:
+        return "before drift"
+    if promoted_at is not None and rec["t0"] >= promoted_at:
+        return "after promotion"
+    return "drift, nothing in flight"
+
+
+def calibration_phase(torch, np, oracle, waves, args, card) -> dict:
+    """Phase 11: ``serve_calibrated``'s drift-injection replay on the card
+    over the phase-1 oracle, then the recovery and a refit on the card
+    and on the CPU."""
+    import shutil
+
+    from repro_torch.api.artifacts import CalibrationStore
+    from repro_torch.api.oracle import LatencyOracle
+    from repro_torch.calibrate import (CalibrationConfig, Calibrator,
+                                       build_candidate, heldout_scores)
+    from repro_torch.calibrate import canary as canary_mod
+    from repro_torch.convert import profet_from_numpy, profet_to_numpy
+    from repro_torch.kernels import forest_eval
+    from repro_torch.launch.serve_calibrated import DriftTruth, replay_round
+    from repro_torch.serve import BackgroundServer, LatencyService
+
+    X, gids = max(waves, key=lambda w: len(w[0]))
+    store_dir = ROOT / "build" / "smoke" / "calibration"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = CalibrationStore(store_dir)
+    cfg = CalibrationConfig(trigger_mape=CAL_TRIGGER, min_obs=8,
+                            min_refit_obs=6, canary_min_obs=4,
+                            confirm_obs=16, cooldown_scored=16)
+    spans, swaps = [], []       # (kind, t0, t1); the promoted oracles
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans.append((kind, t0, time.perf_counter()))
+        return run
+
+    svc = LatencyService(oracle, max_wave=CAL_WAVE)
+    base_epoch = svc.epoch
+    refreshed = svc.oracle_refreshed
+
+    def swap(new, label=None):
+        warm0 = svc.stats.warmup_ms
+        epoch = refreshed(new, label)
+        swaps.append({"oracle": new, "epoch": epoch,
+                      "warmup_ms": svc.stats.warmup_ms - warm0,
+                      "launches_at_swap": new.bank.forest_launches})
+        return epoch
+
+    svc.oracle_refreshed = timed("swap", swap)
+    verdict = canary_mod.verdict
+    canary_mod.verdict = timed("canary", verdict)
+    cal = Calibrator(svc, cfg, store=store,
+                     refit_fn=timed("refit", build_candidate))
+    truth = DriftTruth(oracle.dataset, oracle.pairs()[0], CAL_DRIFT,
+                       CAL_NOISE, seed=args.seed)
+    pair = truth.pair
+    rounds = []
+    bg = None
+    forest_eval.reset_launches()
+    incumbent0 = oracle.bank.forest_launches
+    try:
+        cal.start(interval=CAL_INTERVAL)
+        bg = BackgroundServer(svc, host="127.0.0.1", port=0,
+                              calibrator=cal).start()
+        print(f"calibration replay: {truth.label} x{CAL_DRIFT} from round "
+              f"{CAL_ONSET}, trigger MAPE {CAL_TRIGGER}, epoch {base_epoch}")
+        promoted_round = None
+        for rnd in range(CAL_MAX_ROUNDS):
+            t0 = time.perf_counter()
+            rec = replay_round(bg, cal, oracle, truth, rnd, onset=CAL_ONSET,
+                               requests=CAL_REQUESTS, clients=CAL_CLIENTS,
+                               interval=CAL_INTERVAL, seed=args.seed)
+            rec.update(t0=t0, t1=time.perf_counter())
+            rounds.append(rec)
+            if cal.stats.promotions and promoted_round is None:
+                promoted_round = rnd
+            if rnd + 1 >= CAL_ROUNDS and promoted_round is not None \
+                    and rnd - promoted_round >= CAL_AFTER \
+                    and cal.detector.samples(pair) >= cfg.min_obs:
+                break
+        cal.stop()
+    finally:
+        cal.stop()
+        if bg is not None:
+            bg.stop()
+        canary_mod.verdict = verdict
+    launches = dict(forest_eval.launches)
+    plain = dict(forest_eval.plain_calls)
+    incumbent = oracle.bank.forest_launches - incumbent0
+    s = cal.summary()
+    print("calibration timeline:")
+    for ev in cal.stats.events:
+        print(f"  * {ev}")
+    promoted_at = min((t0 for kind, t0, _ in spans if kind == "swap"),
+                      default=None)
+    for rec in rounds:
+        rec["kind"] = round_kind(rec, CAL_ONSET, spans, promoted_at)
+        print(f"round {rec['round']} ({rec['kind']}; state {rec['state']}): "
+              f"p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms, "
+              f"{rec['requests_per_s']:.1f} req/s, {rec['ok']}/{rec['n']} "
+              f"ok; card: {card}")
+    by_kind = {}
+    for rec in rounds:
+        by_kind.setdefault(rec["kind"], []).append(rec)
+    kinds = {k: {"rounds": [r["round"] for r in v],
+                 "p50_ms": float(np.median([r["p50_ms"] for r in v])),
+                 "p99_ms": float(np.median([r["p99_ms"] for r in v])),
+                 "requests_per_s": float(np.median(
+                     [r["requests_per_s"] for r in v]))}
+             for k, v in by_kind.items()}
+    for k, v in kinds.items():
+        print(f"rounds {v['rounds']} ({k}): median p50 {v['p50_ms']:.3f} "
+              f"ms, median p99 {v['p99_ms']:.3f} ms, median "
+              f"{v['requests_per_s']:.1f} req/s")
+    secs = {kind: [t1 - t0 for k, t0, t1 in spans if k == kind]
+            for kind in ("refit", "canary", "swap")}
+    print(f"refit s {secs['refit']}, canary s {secs['canary']}, swap ms "
+          f"{[1e3 * t for t in secs['swap']]}, warm-up ms "
+          f"{[w['warmup_ms'] for w in swaps]}; card: {card}")
+    n_ok = sum(r["ok"] for r in rounds)
+    n_req = sum(r["n"] for r in rounds)
+    check(n_ok == n_req and not any(r["errors"] for r in rounds),
+          f"calibration replay: {n_ok} of {n_req} requests answered over "
+          f"{len(rounds)} rounds")
+    check(s["drift_events"] >= 1 and s["refits"] >= 1
+          and s["canary_pass"] >= 1 and s["promotions"] >= 1,
+          f"drift detected ({s['drift_events']}), refit ({s['refits']}), "
+          f"canary passed ({s['canary_pass']} of "
+          f"{s['canary_pass'] + s['canary_fail']}) and promoted "
+          f"({s['promotions']}; {s['rollbacks']} rollbacks) mid-traffic")
+    mape = cal.detector.mape(pair)
+    check("+cal" in svc.epoch and svc.epoch != base_epoch and swaps
+          and svc.epoch == swaps[-1]["epoch"],
+          f"the service serves the promoted epoch {svc.epoch}")
+    check(cal.detector.samples(pair) >= cfg.min_obs and mape < CAL_TRIGGER,
+          f"{truth.label} rolling MAPE after the promotion {mape:.3f} < "
+          f"{CAL_TRIGGER} over {cal.detector.samples(pair)} observations")
+    promoted = swaps[-1]["oracle"]
+    cand_launches = (promoted.bank.forest_launches
+                     - swaps[-1]["launches_at_swap"])
+    # the calibrated path's fused grouped launches by whose bank ran them:
+    # the incumbent's (waves before the swap, scoring, the canary), the
+    # candidate's before the swap (canary, shadow waves) and after it
+    # (served waves, scoring); the rest are the swap's bank warm-up
+    split = {"incumbent": incumbent,
+             "candidate_before_swap": swaps[-1]["launches_at_swap"],
+             "candidate_after_swap": cand_launches}
+    split["warmup"] = launches["predict_grouped"] - sum(split.values())
+    check(cand_launches > 0 and launches["predict_grouped"] > 0
+          and promoted.bank.device.type == "cuda",
+          f"the promoted candidate's bank served {cand_launches} fused "
+          f"grouped launches on the card ({launches['predict_grouped']} "
+          f"on the calibrated path in all: {json.dumps(split)})")
+    check(not any(plain.values()),
+          f"no plain forest call on the calibrated path "
+          f"({json.dumps(plain)})")
+    print(f"launches on the calibrated path: {json.dumps(launches)}; plain "
+          f"calls {json.dumps(plain)}")
+
+    # -- recovery on the card and on the CPU ------------------------------
+    want = member_preds(torch, promoted.bank, X, gids)
+    recovered = {}
+    for dev in ("cuda", "cpu"):
+        got = store.recover(expect_config=oracle.config, device=dev)
+        check(got is not None and got[1] == svc.epoch,
+              f"CalibrationStore.recover on {dev} gives the promoted epoch "
+              f"({got[1] if got else None})")
+        preds = member_preds(torch, got[0].bank, X, gids)
+        for member in ("linear", "forest"):
+            check(np.array_equal(preds[member], want[member]),
+                  f"recovered on {dev}: the {member} member equals the "
+                  f"promoted one's bit for bit ({len(X)} rows)")
+        recovered[dev] = got[1]
+
+    # -- the same refit on the card and on the CPU ------------------------
+    cpu_oracle = LatencyOracle(profet_from_numpy(
+        profet_to_numpy(oracle.profet), device="cpu"), oracle.dataset)
+    refit = {}
+    for dev, orc in (("cuda", oracle), ("cpu", cpu_oracle)):
+        t0 = time.perf_counter()
+        cand, rep = build_candidate(orc, cal.buffer, [pair],
+                                    min_refit_obs=cfg.min_refit_obs,
+                                    window=cfg.drift_confirm_obs)
+        fit_s = time.perf_counter() - t0
+        check(cand is not None and rep.pairs == (pair,)
+              and cand.ensemble(*pair).device.type == dev,
+              f"build_candidate on {dev}: {rep.pairs}, {rep.total_obs} obs, "
+              f"fit on {dev} in {fit_s:.2f} s")
+        scores = heldout_scores(orc, cand, cal.buffer, pairs=[pair],
+                                min_obs=cfg.canary_min_obs,
+                                window=cfg.drift_confirm_obs)
+        inc, cmape, n = scores.get(pair, (np.nan, np.nan, 0))
+        check(cmape < CAL_TRIGGER,
+              f"{dev} candidate's held-out MAPE on {truth.label} "
+              f"{cmape:.3f} < {CAL_TRIGGER} (incumbent {inc:.3f}, {n} obs)")
+        refit[dev] = {"cand": cand, "fit_s": fit_s, "heldout": cmape,
+                      "incumbent": inc, "n_obs": n, "scale": rep.scale[pair]}
+    card_m = member_preds(torch, refit["cuda"]["cand"].bank, X, gids)
+    cpu_m = member_preds(torch, refit["cpu"]["cand"].bank, X, gids)
+    for member in ("linear", "forest"):
+        check(np.array_equal(card_m[member], cpu_m[member]),
+              f"refit candidate's {member} member: card and CPU bit for "
+              f"bit ({len(X)} rows)")
+    dnn_rel = max_rel(np, card_m["dnn"], cpu_m["dnn"])
+    print(f"refit candidate's DNN member, card against CPU: max rel diff "
+          f"{dnn_rel:.3e} (float32, trained on each device)")
+    for r in refit.values():
+        del r["cand"]
+    return {"rounds": [{k: v for k, v in r.items() if k not in ("t0", "t1")}
+                       for r in rounds],
+            "by_kind": kinds, "refit_s": secs["refit"],
+            "canary_s": secs["canary"],
+            "swap_ms": [1e3 * t for t in secs["swap"]],
+            "warmup_ms": [w["warmup_ms"] for w in swaps],
+            "launches": launches, "plain_calls": plain,
+            "candidate_fused_launches": cand_launches,
+            "fused_launches_by_bank": split,
+            "summary": {k: s[k] for k in (
+                "drift_events", "refits", "canary_pass", "canary_fail",
+                "promotions", "rollbacks", "confirms", "scored",
+                "shadow_waves", "persisted")},
+            "epoch": svc.epoch, "mape_after": mape, "recovered": recovered,
+            "refit": refit, "refit_dnn_card_vs_cpu_max_rel": dnn_rel}
+
+
+def baselines_phase(np, card) -> dict:
+    """Phase 12: MLPredict fitted on the card and on the CPU, Paleo and
+    Habitat on the host, all on the paper grid's train/test split
+    (``benchmarks/common.split``: 20% held out, seed 0)."""
+    from repro_torch.core import baselines, workloads
+    from repro_torch.core.ensemble import mape
+
+    ds = workloads.generate()
+    train, test = workloads.split_cases(ds.cases, test_frac=0.2, seed=0)
+    true = {d: np.array([ds.latency(d, c) for c in test])
+            for d in ds.devices}
+    ml = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = baselines.MLPredictModel(epochs=300, seed=0, device=dev).fit(
+            ds, train)
+        fit_s = time.perf_counter() - t0
+        check(m.reg.params[0]["w"].device.type == dev,
+              f"MLPredict fitted on {dev} in {fit_s:.1f} s")
+        per = {d: mape(true[d], [m.predict(d, c) for c in test])
+               for d in ds.devices}
+        check(all(np.isfinite(v) for v in per.values()),
+              f"MLPredict on {dev}: finite held-out MAPE per target")
+        ml[dev] = {"fit_s": fit_s, "mape": per}
+    for d in ds.devices:
+        a, b = ml["cuda"]["mape"][d], ml["cpu"]["mape"][d]
+        check(abs(a - b) <= MLPREDICT_BAND_PTS,
+              f"MLPredict MAPE on {d}: card {a:.3f}, CPU {b:.3f} (within "
+              f"{MLPREDICT_BAND_PTS} points); card: {card}")
+    pa = baselines.PaleoModel()
+    for d in ds.devices:
+        pa.calibrate_many(d, train, [ds.latency(d, c) for c in train])
+    paleo = {d: mape(true[d], [pa.predict(d, c) for c in test])
+             for d in ds.devices}
+    hb = baselines.HabitatScaling()
+    habitat = {f"{a}->{t}": mape(true[t], [hb.predict(a, t, c)
+                                           for c in test])
+               for a in ds.devices for t in ds.devices if a != t}
+    print(f"held-out MAPE, {len(test)} cases per device: Paleo "
+          f"{json.dumps(paleo)}; Habitat {json.dumps(habitat)}")
+    return {"mlpredict": ml, "paleo": paleo, "habitat": habitat,
+            "n_test": len(test)}
 
 
 # ---------------------------------------------------------------------------
@@ -1547,6 +1856,11 @@ def main(argv=None) -> int:
     # -- 5. artifacts, sharded and HTTP serving ------------------------------
     report["shard"] = shard_phase(torch, np, oracle, reqs, waves,
                                   wave_plans, args, card)
+
+    # -- 11. live calibration, 12. the baselines ---------------------------
+    report["calibration"] = calibration_phase(torch, np, oracle, waves,
+                                              args, card)
+    report["baselines"] = baselines_phase(np, card)
 
     # -- 6.-10. the LM serving path ------------------------------------------
     kernels += lm_phases(torch, np, args, dev, report)

@@ -80,6 +80,12 @@ launches: Dict[str, int] = {"leaf_values_grouped": 0,
                             "leaf_values": 0, "leaf_values/global": 0,
                             "tree_mean": 0, "predict_grouped": 0,
                             "predict": 0}
+# calls each public wrapper answered with its plain version (CPU tensors,
+# or ``backend="torch"``), under the same lock; on the card's served and
+# calibrated paths these stay at zero
+plain_calls: Dict[str, int] = {"leaf_values_grouped": 0, "leaf_values": 0,
+                               "tree_mean": 0, "predict_grouped": 0,
+                               "predict": 0}
 
 # threads of a block of the shared route: the most rows one batch routes
 TILE_THREADS = 128
@@ -119,8 +125,16 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    """Zero the launch counts and the plain-version call counts."""
+    with _LOCK:
+        for counts in (launches, plain_calls):
+            for k in counts:
+                counts[k] = 0
+
+
+def _plain(name: str) -> None:
+    with _LOCK:
+        plain_calls[name] += 1
 
 
 def library() -> ctypes.CDLL:
@@ -369,6 +383,7 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
     the host (that would sync every wave): a row whose ``gid`` lies outside
     ``[0, G)`` reads no forest and gets NaN in every tree."""
     if not _build.use_kernel(X, backend, "forest_eval"):
+        _plain("leaf_values_grouped")
         return leaf_values_grouped_plain(X, gid, feat, thr, left, right,
                                          value, depth)
     args = (X, gid, feat, thr, left, right, value, depth)
@@ -448,6 +463,7 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
     """Single-forest traversal, ``(T, rows)`` float64 leaf values; forest
     arrays ``(T, N)``, ``depth`` the forest's grown depth."""
     if not _build.use_kernel(X, backend, "forest_eval"):
+        _plain("leaf_values")
         return leaf_values_plain(X, feat, thr, left, right, value, depth)
     args = (X, feat, thr, left, right, value)
     plan = _single_plan(*args, mean=False)
@@ -520,6 +536,7 @@ def tree_mean_plain(vals: torch.Tensor) -> torch.Tensor:
 def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """``(rows,)`` float64 mean of ``(T, rows)`` float64 leaf values."""
     if not _build.use_kernel(vals, backend, "forest_eval"):
+        _plain("tree_mean")
         return tree_mean_plain(vals)
     if vals.dim() != 2:
         raise ValueError(f"vals must be (T, rows); got {tuple(vals.shape)}")
@@ -556,6 +573,7 @@ def predict(X, feat, thr, left, right, value, *, depth: int,
     arguments as :func:`leaf_values`. On the card one launch where the
     shared route is taken, else the global traversal and the tree mean."""
     if not _build.use_kernel(X, backend, "forest_eval"):
+        _plain("predict")
         return predict_plain(X, feat, thr, left, right, value, depth)
     args = (X, feat, thr, left, right, value)
     plan = _single_plan(*args, mean=True)
@@ -578,6 +596,7 @@ def predict_grouped(X, gid, feat, thr, left, right, value, depth, *,
     launch where the shared route is taken (every serving wave of the
     paper grid), else the global traversal and the tree mean."""
     if not _build.use_kernel(X, backend, "forest_eval"):
+        _plain("predict_grouped")
         return predict_grouped_plain(X, gid, feat, thr, left, right, value,
                                      depth)
     args = (X, gid, feat, thr, left, right, value, depth)

@@ -177,8 +177,16 @@ def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
     X = torch.zeros((3, 4), dtype=torch.float64)
     gid = torch.zeros(3, dtype=torch.int64)
     before = dict(forest_eval.launches)
+    plain = dict(forest_eval.plain_calls)
     forest_eval.predict_grouped(X, gid, *(t[k] for k in FIELDS), t["depth"])
     assert forest_eval.launches == before
+    # the plain version answered, and was counted as such (once: its
+    # traversal and tree mean are the plain functions, not the wrappers)
+    assert forest_eval.plain_calls == dict(
+        plain, predict_grouped=plain["predict_grouped"] + 1)
+    forest_eval.reset_launches()
+    assert not any(forest_eval.plain_calls.values())
+    assert not any(forest_eval.launches.values())
     with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
         forest_eval.leaf_values_grouped(X, gid, *(t[k] for k in FIELDS),
                                         t["depth"], backend="cuda")

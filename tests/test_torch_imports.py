@@ -34,10 +34,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
 
 
 def test_sources_name_no_jax_and_no_repro_import():
-    """The package and ``chip_smoke.py``, which runs where JAX is not
-    installed."""
+    """The package, ``chip_smoke.py`` and the port's examples, which run
+    where JAX is not installed."""
     bad = []
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                 *(ROOT / "examples").glob("torch_*.py")]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

@@ -7,10 +7,11 @@ codecs — over the reference's oracles carried into the port on the CPU.
 Each package's ``Client`` talks to the other's ``TransportServer`` on
 loopback and both give the same answers.
 
-``repro_torch.calibrate`` is not ported yet, so the ``/measure`` tests
-attach a recording stand-in that takes every row (the reference's
-``Calibrator`` drops rows by its own rules); the rows it receives are held
-to what the same bytes give the reference's server.
+The ``/measure`` and ``measured_ms`` ingest paths are held to the
+reference twice: with a recording stand-in calibrator that takes every row
+(the rows it receives equal what the same bytes give the reference's
+server), and with each package's real ``Calibrator`` (the same
+``(accepted, dropped)`` counts and the same ``/statsz`` calibration block).
 
 Tolerance: float64 members, so answers over the socket equal the
 in-process answers (rel 1e-9 as in the reference's twin; the JSON float
@@ -707,6 +708,99 @@ def test_replay_reports_measurements_columnar(oracle, dataset, stream):
         assert all(r["epoch"] == svc.epoch for r in cal.rows)
     finally:
         bg.stop()
+
+
+# ---------------------------------------------------------------------------
+# /measure and measured_ms into each package's real Calibrator
+# ---------------------------------------------------------------------------
+
+
+def _mixed_measure_rows(epoch):
+    """Rows the calibrator takes and rows it drops: echoed predictions,
+    an echoed epoch without a prediction (re-predicted when scored), a
+    measured-mode pair, a pair the oracle cannot serve and a negative
+    latency."""
+    rows = _measure_rows(4)
+    rows.append(dict(_measure_rows(1, latency=14.0)[0], predicted_ms=None,
+                     epoch=epoch))
+    rows.append(dict(_measure_rows(1)[0], target="T4"))
+    rows.append(dict(_measure_rows(1)[0], target="TPUv9"))
+    rows.append(dict(_measure_rows(1)[0], latency_ms=-3.0))
+    return rows
+
+
+def _real_calibrators(oracle, ref_oracle):
+    from repro.calibrate import Calibrator as RefCalibrator
+    from repro.serve import BackgroundServer as RefServer
+    from repro.serve import LatencyService as RefService
+    from repro_torch.calibrate import Calibrator
+    return (("port", LatencyService, BackgroundServer, Calibrator, oracle),
+            ("ref", RefService, RefServer, RefCalibrator, ref_oracle))
+
+
+@pytest.mark.parametrize("binary", [False, True], ids=["json", "pfc1"])
+def test_measure_into_the_real_calibrator_matches_the_reference(
+        oracle, ref_oracle, binary):
+    """The same bytes through each package's server into its own
+    ``Calibrator``: the same ``(accepted, dropped)`` and, after one
+    control step scores them, the same ``/statsz`` calibration block."""
+    got = {}
+    for name, svc_cls, srv_cls, cal_cls, orc in _real_calibrators(
+            oracle, ref_oracle):
+        svc = svc_cls(orc, max_wave=32)
+        cal = cal_cls(svc)
+        rows = _mixed_measure_rows(svc.epoch)
+        bg = srv_cls(svc, batch_window_s=0.0, calibrator=cal).start()
+        try:
+            with Client(bg.host, bg.port) as c:
+                if binary:
+                    counts = c.measure(rows)
+                else:
+                    status, body = c.request(
+                        "POST", "/measure",
+                        transport.measure_columnar_from_rows(rows))
+                    assert status == 200
+                    counts = {k: body[k] for k in ("accepted", "dropped")}
+                cal.step()
+                got[name] = (counts, c.statsz()["calibration"])
+        finally:
+            bg.stop()
+    assert got["port"] == got["ref"]
+    counts, block = got["port"]
+    assert counts == {"accepted": 6, "dropped": 2}
+    assert block["observations"] == 6 and block["scored"] == 6
+    assert block["buffered"] == 6 and block["dropped"] == 2
+    assert set(block["rolling_mape"]) == {"T4->V100", "T4->T4"}
+
+
+def test_advise_measured_ms_into_the_real_calibrator_matches_the_reference(
+        oracle, ref_oracle, dataset):
+    """An advise call carrying ``measured_ms`` feeds the anchor's own
+    measurement to each package's ``Calibrator``; the ``/statsz``
+    calibration blocks agree."""
+    case = dataset.cases[0]
+    got = {}
+    for name, svc_cls, srv_cls, cal_cls, orc in _real_calibrators(
+            oracle, ref_oracle):
+        svc = svc_cls(orc, max_wave=32)
+        cal = cal_cls(svc)
+        bg = srv_cls(svc, batch_window_s=0.0, calibrator=cal).start()
+        try:
+            with Client(bg.host, bg.port) as c:
+                rows = c.advise({"anchor": "T4",
+                                 "workload": {"model": case[0],
+                                              "batch": case[1],
+                                              "pix": case[2]},
+                                 "measured_ms": 12.5})
+                assert rows[0]["latency_ms"] == 12.5
+                cal.step()
+                got[name] = c.statsz()["calibration"]
+        finally:
+            bg.stop()
+    assert got["port"] == got["ref"]
+    assert got["port"]["observations"] == 1
+    assert got["port"]["scored"] == 1
+    assert list(got["port"]["rolling_mape"]) == ["T4->T4"]
 
 
 # ---------------------------------------------------------------------------
