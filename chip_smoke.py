@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port starts and serves on the GPU.
+"""Quickest proof that the PyTorch port starts, serves and trains on the GPU.
 
     python3 chip_smoke.py [--requests 500] [--epochs 150] [--seed 0]
-                          [--out FILE]
+                          [--train-steps 10] [--out FILE]
 
 Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all at once) and drives the port's two paths.
+source, all at once) and drives the port's three paths: PROFET serving,
+LM serving and LM training.
 
 The PROFET path: it fits the paper-grid predictor (4 devices, 346 cases,
 linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
@@ -102,6 +103,29 @@ float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
      shapes (cast), held to the float32 bar and timed the same way;
  10. one prefill of each model under ``torch.profiler``: idle share and
      top device kernels.
+
+The LM training path, at full published width:
+
+ 13. a launch of either kernel on grad-requiring inputs outside its
+     ``autograd.Function`` raises; one float32 train step of each SMOKE
+     model on the card and on the CPU (loss and grad norm within 1e-4
+     relative); one step's parameter gradients at full width and 2 layers
+     of each model on (4, 2048) tokens through the kernel (its Function:
+     kernel forward, the reference's gradient recomputed) against the
+     plain path (``backend="torch"``): float32 per tensor within 1e-4
+     of its largest gradient, bf16 per tensor at most 2x as far from the
+     float32 plain gradient as the bf16 plain path's; then ``Trainer.run`` for
+     ``--train-steps`` (10) steps of llama3.2-1b (16 layers,
+     1,235,814,400 params) and of mamba2-130m on (4, 2048) tokens of the
+     synthetic stream, float32 params and Adam state, bf16 activations,
+     remat: launches per step as derived from the code (one per block in
+     the forward and one in the remat recompute: 32 flash, 48 SSD; one
+     backward recompute per block), every gradient after step 1 finite
+     and not all zero, every loss finite and the last 3 below the first 3;
+     median step time, tokens/s, peak memory, and one traced step. The
+     mamba2-130m run checkpoints at the midpoint: that checkpoint restores
+     on the card and on the CPU bit for bit, and a fresh ``Trainer``
+     resumes from the last one.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -270,10 +294,38 @@ def is_kernel(name, key) -> bool:
     return f"{name}<" in key or f"{name}(" in key
 
 
+# the train step's profiler ranges (launch/steps.py), and the kernels'
+# Function backwards, whose device time traces report inclusive of what
+# they launch
+RANGES = ("train_step/",)
+TRACED_SPANS = ("train_step/forward", "train_step/optimizer",
+                "FlashAttentionBackward", "SSDScanBackward")
+
+
+def kernel_kind(key) -> str:
+    """A coarse kind of the device function the profiler's ``key`` names:
+    one of the repo's kernels, a library GEMM, a reduction, an elementwise
+    pass, a copy or fill, or other."""
+    low = key.lower()
+    if any(is_kernel(name, key) for name in REPO_KERNELS):
+        return "repo_kernels"
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
+                              "sm90_", "nvjet")):
+        return "gemm"
+    if "reduce" in low or "softmax" in low or "norm" in low:
+        return "reduction"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    if "memcpy" in low or "memset" in low or "copy" in low or "fill" in low:
+        return "copy"
+    return "other"
+
+
 def traced(torch, run) -> dict:
     """``run()`` under ``torch.profiler``: the share of its wall time the
     card spent running kernels, the kernels that took the most device
-    time, and the device time of each of the repo's own kernels."""
+    time, the device time of each of the repo's own kernels and of each
+    kind of kernel, and of the train step's spans (``TRACED_SPANS``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -282,14 +334,26 @@ def traced(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    # record_function ranges also appear as device events (the GPU span of
+    # what their thread launched): not kernels, so not busy time
     kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
+               if e.device_type.name == "CUDA"
+               and not e.key.startswith(RANGES)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    split = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
+    # device time under the train step's ranges and the kernels' Function
+    # backwards (inclusive of what they launch)
+    spans = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+             if e.device_type.name == "CPU" and e.key in TRACED_SPANS}
     # a trace without device events measured nothing: say so, not "idle"
     return {"wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3 if kernels else None,
             "device_idle_share": 1.0 - busy_us / wall_us if kernels else None,
+            "device_ms_by_kind": split, "spans_device_ms": spans,
             "top_kernels": [{"name": e.key[:60], "calls": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top],
@@ -1405,12 +1469,321 @@ def lm_phases(torch, np, args, dev, report) -> list:
         print(f"{r['cfg'].name} traced prefill: {json.dumps(tr)}")
     return rows
 
+# ---------------------------------------------------------------------------
+# the LM training path (phase 13)
+# ---------------------------------------------------------------------------
+
+# the gradient check's float32 bar, per tensor: max |kernel grad - plain
+# grad| <= RTOL_GRAD_F32 x max |plain grad|. The Functions' backward is
+# the same on both paths, so the gap comes from the float32 kernels'
+# forward alone. On an H100 80GB HBM3 (700 W limit) the worst tensors
+# measured 1.55e-6 (llama3.2-1b) and 4.46e-6 (mamba2-130m): the bar
+# leaves ~20x above the larger and sits 1e4 below a cut branch's gap (1.0)
+RTOL_GRAD_F32 = 1e-4
+# the bf16 per-tensor rule's least plain gap, relative to the tensor's max
+# float32 gradient: an eighth of bf16's spacing at 1.0 (2**-7), so a tensor
+# whose plain path happens to round like float32 is held to 2x 2**-10
+BF16_GRAD_FLOOR = 2.0 ** -10
+# a SMOKE train step's loss and grad norm, card against CPU
+RTOL_TRAIN_CARD_VS_CPU = 1e-4
+TRAIN_GRAD_LAYERS = 2
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    return {**lm_launches(),
+            "flash_attention/backward": fa_mod.backward_recomputes[
+                "flash_attention"],
+            "ssd_scan/backward": ssd_mod.backward_recomputes["ssd_scan"]}
+
+
+def device_batch(torch, np, cfg, dev, seed, index=0):
+    from repro_torch.data import pipeline as DP
+    b = DP.make_pipeline(cfg, seq_len=LM_SEQ, global_batch=LM_BATCH,
+                         seed=seed).batch_at(index)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
+    """Phase 13, one model: ``Trainer.run`` at full width and depth on
+    (4, 2048) tokens, float32 params and Adam state, bf16 activations,
+    remat. With ``ckpt_dir`` it checkpoints mid-run and checks the restore
+    on the card and on the CPU."""
+    from repro_torch.configs import base as CB
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    cfg = CB.get_config(arch)
+    other = "ssd_scan" if kernel == "flash_attention" else "flash_attention"
+    steps = args.train_steps
+    # derived from the code before the run: each block calls the kernel's
+    # wrapper once; with cfg.remat torch.utils.checkpoint runs the block's
+    # forward again in the backward, and each forward launches the kernel
+    # through its Function; each Function's backward recomputes the
+    # reference's function once
+    per_step = cfg.num_layers * (2 if cfg.remat else 1)
+    per_step_backward = cfg.num_layers
+    mid = steps // 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                                  num_steps=steps, log_every=0,
+                                  ckpt_every=mid if ckpt_dir else 0,
+                                  ckpt_dir=ckpt_dir, seed=args.seed),
+                 device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tr.model.parameters())
+
+    lm_reset_launches()
+    tr.train_one()
+    c1 = train_counts()
+    check(c1[kernel] == per_step and c1[f"{kernel}/backward"]
+          == per_step_backward and c1[other] == 0,
+          f"{arch} train step 1: {c1[kernel]} {kernel} launches (derived "
+          f"{per_step}: {cfg.num_layers} blocks, forward and remat "
+          f"recompute), {c1[f'{kernel}/backward']} backward recomputes "
+          f"(derived {per_step_backward}), {c1[other]} {other}")
+    bad = [k for k, p in tr.params.items()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    check(not bad, f"{arch} after step 1 every one of {len(tr.params)} "
+          f"parameters' .grad is finite and not all zero (bad: {bad[:5]})")
+
+    snap = {}
+
+    def on_step(step, _):
+        if ckpt_dir and step == mid:   # what the trainer saves next
+            snap.update(
+                params={k: p.detach().cpu().clone()
+                        for k, p in tr.params.items()},
+                m={k: t.cpu().clone() for k, t in tr.opt_state["m"].items()},
+                v={k: t.cpu().clone() for k, t in tr.opt_state["v"].items()},
+                step=int(tr.opt_state["step"]))
+
+    tr.run(on_step=on_step)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    check(counts[kernel] == per_step * steps
+          and counts[f"{kernel}/backward"] == per_step_backward * steps
+          and counts[other] == 0,
+          f"{arch} Trainer.run, {steps} steps: {counts[kernel]} {kernel} "
+          f"launches, {counts[f'{kernel}/backward']} backward recomputes "
+          f"({per_step} and {per_step_backward} a step)")
+    losses = [h["loss"] for h in tr.history]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(all(np.isfinite(losses)) and last < first,
+          f"{arch}: {steps} finite losses, the last 3 mean {last:.4f} below "
+          f"the first 3 mean {first:.4f}")
+    times = [h["step_time_s"] for h in tr.history[1:]]
+    step_ms = 1e3 * float(np.median(times))
+    rep = {"params": n_params, "init_s": init_s, "steps": steps,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_all": [1e3 * h["step_time_s"] for h in tr.history],
+           "tokens_per_s": LM_BATCH * LM_SEQ / step_ms * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # measured: the counts of this run over its steps
+           "launches_per_step": counts[kernel] // steps,
+           "backward_recomputes_per_step":
+               counts[f"{kernel}/backward"] // steps,
+           "launches": counts[kernel],
+           "backward_recomputes": counts[f"{kernel}/backward"],
+           "grad_norms": [h["grad_norm"] for h in tr.history]}
+
+    if ckpt_dir:
+        like = {"params": tr.params, "opt": tr.opt_state,
+                "data_index": np.int32(0)}
+        for where in (dev, torch.device("cpu")):
+            got = CKPT.restore(ckpt_dir, mid, like, device=where)
+            same = (all(torch.equal(got["params"][k].cpu(), t)
+                        for k, t in snap["params"].items())
+                    and all(torch.equal(got["opt"][part][k].cpu(), t)
+                            for part in ("m", "v")
+                            for k, t in snap[part].items())
+                    and int(got["opt"]["step"]) == snap["step"] == mid
+                    and int(got["data_index"]) == mid
+                    and all(t.device.type == where.type
+                            for t in got["params"].values()))
+            check(same, f"{arch}: the step-{mid} checkpoint saved on the "
+                  f"card restores on {where.type} bit for bit (params, "
+                  f"Adam moments, step, data index)")
+        fresh = Trainer(cfg, TrainConfig(seq_len=LM_SEQ,
+                                         global_batch=LM_BATCH,
+                                         num_steps=steps, ckpt_dir=ckpt_dir,
+                                         seed=args.seed + 1), device=dev)
+        check(fresh.maybe_restore() and fresh.step == steps
+              and all(torch.equal(p, tr.params[k])
+                      for k, p in fresh.params.items())
+              and fresh.data.index == steps,
+              f"{arch}: a fresh Trainer on the card resumes from the step-"
+              f"{steps} checkpoint, params bit for bit")
+        del fresh
+    rep["trace"] = traced(torch, tr.train_one)
+    print(f"{arch} train: {json.dumps(rep)}")
+    del tr
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lm_grad_check(torch, np, arch, kernel, args, dev) -> dict:
+    """Phase 13: one step's parameter gradients at full width and
+    TRAIN_GRAD_LAYERS layers, (4, 2048) tokens, through the kernel (its
+    Function: the kernel's forward, the reference's gradient recomputed)
+    against the plain path (``backend="torch"``: the kernel's plain version
+    through the same Function). float32: per tensor within RTOL_GRAD_F32
+    of its largest plain gradient. bf16, per tensor: the kernel path's
+    gradient at most BF16_VS_PLAIN times as far from the float32 plain
+    gradient as the bf16 plain path's, or as BF16_GRAD_FLOOR if that is
+    larger (each gap relative to the tensor's max |float32 plain grad|)."""
+    from repro_torch.configs import base as CB
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(CB.get_config(arch),
+                              num_layers=TRAIN_GRAD_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = M.init(cfg, seed=args.seed, device=dev).requires_grad_(True)
+    batch = device_batch(torch, np, cfg, dev, args.seed)
+
+    def grads(c, backend):
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = M.loss_fn(model, c, batch, backend=backend)
+        loss.backward()
+        return {k: p.grad for k, p in model.named_parameters()}
+
+    def rel(g, want):
+        return {k: float((g[k] - w).abs().max()) / float(w.abs().max())
+                for k, w in want.items()}
+
+    lm_reset_launches()
+    k32 = grads(cfg32, "auto")
+    n = train_counts()
+    g32 = grads(cfg32, "torch")
+    m = train_counts()
+    check(m[kernel] == n[kernel] == 2 * TRAIN_GRAD_LAYERS
+          and n[f"{kernel}/backward"] == TRAIN_GRAD_LAYERS
+          and m[f"{kernel}/backward"] == 2 * TRAIN_GRAD_LAYERS,
+          f"{arch} gradient check: the kernel path launched {kernel} "
+          f"{n[kernel]} times (forward and recompute), the plain path none; "
+          f"{n[f'{kernel}/backward']} and "
+          f"{m[f'{kernel}/backward'] - n[f'{kernel}/backward']} backward "
+          f"recomputes")
+    dead = [k for k, g in k32.items() if not bool((g != 0).any())]
+    check(not dead, f"{arch} float32 kernel-path gradients: none all zero "
+          f"({dead[:5]})")
+    r32 = rel(k32, g32)
+    worst32 = max(r32, key=r32.get)
+    check(r32[worst32] <= RTOL_GRAD_F32,
+          f"{arch} float32 gradients through the {kernel} kernel: every "
+          f"tensor within {RTOL_GRAD_F32} x its max |plain grad| (worst "
+          f"{worst32} {r32[worst32]:.3e})")
+    del k32
+    k16 = rel(grads(cfg, "auto"), g32)
+    p16 = rel(grads(cfg, "torch"), g32)
+    ratio = {k: k16[k] / max(p16[k], BF16_GRAD_FLOOR) for k in k16}
+    worst16 = max(ratio, key=ratio.get)
+    check(ratio[worst16] <= BF16_VS_PLAIN,
+          f"{arch} bf16 gradients through the {kernel} kernel: every "
+          f"tensor's gap from the float32 plain gradient within "
+          f"{BF16_VS_PLAIN} x the bf16 plain path's (floor "
+          f"{BF16_GRAD_FLOOR}); worst {worst16} {k16[worst16]:.3e} against "
+          f"{p16[worst16]:.3e}")
+    rep = {"layers": TRAIN_GRAD_LAYERS, "f32_worst": r32[worst32],
+           "f32_worst_tensor": worst32,
+           "f32_median": float(np.median(list(r32.values()))),
+           "bf16_worst_ratio": ratio[worst16],
+           "bf16_worst_ratio_tensor": worst16,
+           "bf16_median_ratio": float(np.median(list(ratio.values()))),
+           "bf16_kernel_vs_f32_plain_max": max(k16.values()),
+           "bf16_plain_vs_f32_plain_max": max(p16.values()),
+           "bf16_kernel_median": float(np.median(list(k16.values()))),
+           "bf16_plain_median": float(np.median(list(p16.values())))}
+    print(f"{arch} gradient check: {json.dumps(rep)}")
+    del model, g32
+    torch.cuda.empty_cache()
+    return rep
+
+
+def smoke_train_card_vs_cpu(torch, np, arch, dev) -> dict:
+    """Phase 13: one float32 train step of a SMOKE model on the card and on
+    the CPU from the same params and batch."""
+    from repro_torch.configs import base as CB
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as OPT
+
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="float32")
+    hp = OPT.OptHParams(warmup_steps=2, decay_steps=10)
+    b = DP.make_pipeline(cfg, seq_len=64, global_batch=4).batch_at(0)
+    out = {}
+    for where in ("cpu", dev):
+        model = M.init(cfg, seed=0, device="cpu").to(where)
+        model.requires_grad_(True)
+        state = OPT.init_state(dict(model.named_parameters()), hp)
+        _, _, m = ST.make_train_step(cfg, hp)(
+            model, state, {k: torch.from_numpy(v).to(where)
+                           for k, v in b.items()})
+        out[torch.device(where).type] = {k: float(v) for k, v in m.items()}
+    rels = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+            for k in ("loss", "grad_norm")}
+    check(max(rels.values()) <= RTOL_TRAIN_CARD_VS_CPU,
+          f"{arch} SMOKE float32 train step: card and CPU loss and grad "
+          f"norm within {RTOL_TRAIN_CARD_VS_CPU} relative ({rels})")
+    return {"card": out["cuda"], "cpu": out["cpu"], "rel": rels}
+
+
+def train_phases(torch, np, args, dev, report) -> dict:
+    """Phase 13; returns, per LM kernel, what its row adds."""
+    import tempfile
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    for name, launch in (
+            ("flash_attention", lambda: fa_mod.kernel_forward(q, q, q)),
+            ("ssd_scan", lambda: ssd_mod.kernel_forward(
+                q, torch.zeros((1, 64, 2), device=dev), q[:, :, 0],
+                q[:, :, 0], chunk=64))):
+        try:
+            launch()
+            raised = False
+        except RuntimeError as e:
+            raised = "cut every gradient" in str(e)
+        check(raised, f"{name}: a launch on grad-requiring inputs outside "
+              f"its autograd.Function raises")
+    out = {"card_vs_cpu": {a: smoke_train_card_vs_cpu(torch, np, a, dev)
+                           for a in ("llama3.2-1b", "mamba2-130m")}}
+    out["grad_check"] = {
+        k: lm_grad_check(torch, np, a, k, args, dev)
+        for a, k in (("llama3.2-1b", "flash_attention"),
+                     ("mamba2-130m", "ssd_scan"))}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        out["train"] = {
+            "flash_attention": lm_train(torch, np, "llama3.2-1b",
+                                        "flash_attention", args, dev),
+            "ssd_scan": lm_train(torch, np, "mamba2-130m", "ssd_scan", args,
+                                 dev, ckpt_dir=d)}
+    report["lm_train"] = out
+    return {k: {"train_launches": r["launches"],
+                "train_launches_per_step": r["launches_per_step"],
+                "train_backward_recomputes_per_step":
+                    r["backward_recomputes_per_step"],
+                "train_step_ms": r["step_ms"]}
+            for k, r in out["train"].items()}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--epochs", type=int, default=150)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=10,
+                    help="Trainer.run steps per model in phase 13")
     ap.add_argument("--out", default=None,
                     help="also write the result lines to this JSON file")
     args = ap.parse_args(argv)
@@ -1863,7 +2236,13 @@ def main(argv=None) -> int:
     report["baselines"] = baselines_phase(np, card)
 
     # -- 6.-10. the LM serving path ------------------------------------------
-    kernels += lm_phases(torch, np, args, dev, report)
+    lm_rows = lm_phases(torch, np, args, dev, report)
+
+    # -- 13. the LM training path --------------------------------------------
+    per_kernel = train_phases(torch, np, args, dev, report)
+    for row in lm_rows:
+        row.update(per_kernel[row["name"]])
+    kernels += lm_rows
 
     if args.out:
         out = pathlib.Path(args.out)

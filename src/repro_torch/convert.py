@@ -1,6 +1,7 @@
 """Carry models across as plain numpy state: a fitted PROFET model
-(:func:`profet_from_numpy` / :func:`profet_to_numpy`) and an LM's
-parameters (:func:`lm_from_numpy` / :func:`lm_to_numpy`).
+(:func:`profet_from_numpy` / :func:`profet_to_numpy`), an LM's
+parameters (:func:`lm_from_numpy` / :func:`lm_to_numpy`) and its AdamW
+state (:func:`opt_state_from_numpy` / :func:`opt_state_to_numpy`).
 
 A PROFET state is a dict of numpy arrays, strings, numbers, lists and dicts —
 nothing framework-specific — so a model fitted by the JAX reference can be
@@ -117,43 +118,83 @@ def profet_to_numpy(profet: Profet) -> dict:
     }
 
 
+def _tensor(arr: np.ndarray, dev) -> torch.Tensor:
+    """``arr`` as a tensor on ``dev``; a bfloat16 array (``ml_dtypes``, the
+    reference's) goes through float32, exactly."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _unstack(tree: dict, dev) -> dict:
+    """A reference tree (every leaf under ``"blocks"`` stacked on a leading
+    layer axis) as tensors on ``dev`` keyed by the port's parameter names
+    (``blocks.<i>.<rest>``)."""
+    state = {}
+    for key, arr in _flatten(tree):
+        if key.startswith("blocks."):
+            rest = key[len("blocks."):]
+            for i in range(arr.shape[0]):
+                state[f"blocks.{i}.{rest}"] = _tensor(arr[i], dev)
+        else:
+            state[key] = _tensor(arr, dev)
+    return state
+
+
+def _stack(named) -> dict:
+    """The inverse of :func:`_unstack` for ``(name, tensor)`` pairs, copied
+    to the host; bfloat16 tensors come back as float32 (numpy has no
+    bfloat16; the widening is exact)."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for key, t in named:
+        t = t.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if key.startswith("blocks."):
+            i, rest = key[len("blocks."):].split(".", 1)
+            per_layer.setdefault(rest, {})[int(i)] = arr
+        else:
+            _set(tree, key, arr)
+    for rest, layers in per_layer.items():
+        _set(tree, f"blocks.{rest}",
+             np.stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
 def lm_from_numpy(cfg, params: dict, device="cuda"):
     """The port's LM (``repro_torch.models.model``) holding ``params``, the
     reference's parameter tree as ``M.init`` returns it after
     ``np.asarray``: nested dicts of numpy arrays, every leaf under
     ``"blocks"`` stacked on a leading layer axis. Dtypes are kept."""
     from repro_torch.models import model as M
-    dev = resolve_device(device)
-    state = {}
-    for key, arr in _flatten(params):
-        if key.startswith("blocks."):
-            rest = key[len("blocks."):]
-            for i in range(arr.shape[0]):
-                state[f"blocks.{i}.{rest}"] = torch.from_numpy(
-                    np.array(arr[i])).to(dev)
-        else:
-            state[key] = torch.from_numpy(np.array(arr)).to(dev)
     model = M.build(cfg, device="meta")
-    model.load_state_dict(state, assign=True)
+    model.load_state_dict(_unstack(params, resolve_device(device)),
+                          assign=True)
     return model
 
 
 def lm_to_numpy(model) -> dict:
     """The inverse of :func:`lm_from_numpy`: the reference's parameter tree
     of the port's LM, copied to the host."""
-    params: dict = {}
-    per_layer: dict = {}
-    for key, t in model.state_dict().items():
-        arr = t.detach().cpu().numpy()
-        if key.startswith("blocks."):
-            i, rest = key[len("blocks."):].split(".", 1)
-            per_layer.setdefault(rest, {})[int(i)] = arr
-        else:
-            _set(params, key, arr)
-    for rest, layers in per_layer.items():
-        _set(params, f"blocks.{rest}",
-             np.stack([layers[i] for i in range(len(layers))]))
-    return params
+    return _stack(model.state_dict().items())
+
+
+def opt_state_from_numpy(state: dict, device="cuda") -> dict:
+    """The port's AdamW state (``repro_torch.train.optimizer``) holding the
+    reference's ``{"m", "v", "step"}`` after ``np.asarray``: the moments are
+    parameter trees (blocks stacked), ``step`` a scalar. Dtypes are kept;
+    the moments are keyed by the port's parameter names."""
+    dev = resolve_device(device)
+    return {"m": _unstack(state["m"], dev), "v": _unstack(state["v"], dev),
+            "step": torch.tensor(np.asarray(state["step"]), device=dev)}
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The inverse of :func:`opt_state_from_numpy`: the reference's
+    optimizer state tree of the port's AdamW state, copied to the host."""
+    return {"m": _stack(state["m"].items()), "v": _stack(state["v"].items()),
+            "step": state["step"].cpu().numpy()}
 
 
 def _flatten(tree: dict, prefix: str = ""):

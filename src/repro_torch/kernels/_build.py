@@ -15,6 +15,12 @@ launches the kernel and raises for CPU tensors; ``"torch"`` runs the plain
 version on the tensors' own device (how ``chip_smoke.py`` holds a kernel
 against it). A failed launch raises; nothing falls back to the plain
 version.
+
+Gradients (:func:`needs_grad`, :func:`check_no_grad`,
+:func:`recompute_grads`): a kernel fills its output through a raw
+pointer, so the LM wrappers route grad-requiring inputs through an
+``autograd.Function`` whose backward recomputes the reference's own
+function, and a kernel launched on such inputs outside it raises.
 """
 from __future__ import annotations
 
@@ -143,6 +149,36 @@ def check_16_byte_rows(*named: tuple) -> None:
                 f"time: it must start on 16 bytes with strides that are "
                 f"multiples of {step} elements; got strides {t.stride()} "
                 f"(.contiguous() gives such a tensor)")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on ``tensors``: grad is enabled
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_no_grad(module: str, *tensors: torch.Tensor) -> None:
+    """Raise if a kernel launch on ``tensors`` would cut the gradient: its
+    output, filled through a raw pointer, would carry no ``grad_fn``."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"the {module} kernel writes its output through a raw pointer, "
+            f"so launching it on inputs that require grad would cut every "
+            f"gradient through it; call the {module} wrapper, which routes "
+            f"them through its autograd.Function")
+
+
+def recompute_grads(fn, saved, needs, grad_out) -> list:
+    """The gradients of ``fn(*saved)`` with respect to the inputs marked in
+    ``needs`` (None for the others), taken by autograd from ``fn``
+    recomputed on detached copies of ``saved``: the backward of a kernel's
+    ``autograd.Function``."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = fn(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return [next(grads) if t.requires_grad else None for t in inputs]
 
 
 def raise_on(rc: int, fn: str) -> None:

@@ -16,6 +16,18 @@ elements. float32 runs on the CUDA cores. The plain version is
 P.V).
 
 Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it.
+
+Gradients: the kernel writes its output through a raw pointer, so a
+tensor it fills has no ``grad_fn``. Whenever grad is enabled and an input
+requires it, :func:`flash_attention` goes through :class:`FlashAttention`
+instead: its forward is the kernel (or, for CPU tensors and
+``backend="torch"``, the plain version), saving q, k and v; its backward
+recomputes the reference's own attention from them
+(``ref.reference_attention``, which the reference's train step
+differentiates; there is no Pallas backward kernel to port) and takes its
+autograd gradient (:data:`backward_recomputes` counts these). Launching
+the kernel on such inputs any other way (:func:`kernel_forward` under
+grad) raises, so no caller can cut the gradient silently.
 """
 from __future__ import annotations
 
@@ -26,10 +38,12 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, reference_attention
 
 # launches of the kernel in this process (the plain version counts none)
 launches: Dict[str, int] = {"flash_attention": 0}
+# backward passes of FlashAttention (each recomputes reference_attention)
+backward_recomputes: Dict[str, int] = {"flash_attention": 0}
 
 BLOCK_Q = BLOCK_KV = 64            # rows of the kernel's query and key tiles
 HEAD_DIMS = (16, 32, 64, 128)      # head dims the kernel is built for
@@ -43,6 +57,7 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     launches["flash_attention"] = 0
+    backward_recomputes["flash_attention"] = 0
 
 
 def library() -> ctypes.CDLL:
@@ -88,9 +103,45 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q, k, v, *, backend: str = "auto") -> torch.Tensor:
-    """Causal GQA attention. q: (B, S, H, D); k, v: (B, S, KV, D)."""
+    """Causal GQA attention. q: (B, S, H, D); k, v: (B, S, KV, D).
+    Differentiable through :class:`FlashAttention` when grad is enabled and
+    an input requires it."""
+    if _build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, backend)
+    return _forward(q, k, v, backend)
+
+
+def _forward(q, k, v, backend: str) -> torch.Tensor:
     if not _build.use_kernel(q, backend, "flash_attention"):
         return flash_attention_ref(q, k, v)
+    return kernel_forward(q, k, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward; the backward recomputes
+    ``reference_attention`` from the saved q, k, v and returns its autograd
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, backend):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, backend)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        backward_recomputes["flash_attention"] += 1
+        grads = _build.recompute_grads(reference_attention,
+                                       ctx.saved_tensors,
+                                       ctx.needs_input_grad[:3], grad_out)
+        return (*grads, None)
+
+
+def kernel_forward(q, k, v) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors. No autograd: raises when
+    grad is enabled and an input requires it (call :func:`flash_attention`,
+    which routes such inputs through :class:`FlashAttention`)."""
+    _build.check_no_grad("flash_attention", q, k, v)
+    _build.use_kernel(q, "cuda", "flash_attention")
     _check(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)

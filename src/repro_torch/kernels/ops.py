@@ -3,7 +3,9 @@
 Port of ``repro.kernels.ops``: :func:`flash_attention` and :func:`ssd_scan`
 dispatch to the hand-written CUDA kernels for CUDA tensors and to their
 plain versions for CPU tensors (``backend``, as
-:mod:`repro_torch.kernels._build` describes it). The reference's
+:mod:`repro_torch.kernels._build` describes it); when grad is enabled and
+an input requires it, through the kernels' ``autograd.Function``s
+(``FlashAttention``, ``SSDScan``). The reference's
 ``vmem_bytes_*`` budgets of the TPU's VMEM become the kernels' shared-memory
 budgets, ``flash_attention.smem_bytes`` and ``ssd_scan.smem_bytes``, each
 held under ``_build.SMEM_PER_BLOCK``.

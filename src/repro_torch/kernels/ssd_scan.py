@@ -26,6 +26,20 @@ The plain version is :func:`ssd_chunked`, the port of
 the second oracle of the tests.
 
 Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it.
+
+Gradients: :func:`ssd_chunked` has two roles. It is the kernel's plain
+version, and it is the reference's own train-time function (the
+reference's train step differentiates ``ssm.ssd_chunked``; there is no
+Pallas backward kernel to port). Whenever grad is enabled and an input
+requires it, :func:`ssd_scan` goes through :class:`SSDScan`: its forward
+is the kernel (all three bf16 launches, or the float32 one; the plain
+version for CPU tensors and ``backend="torch"``), saving X, Adt, Bc and
+Cc; its backward recomputes :func:`ssd_chunked` from them in its second
+role and returns autograd's gradients for all four (Adt carries the
+gradient on to ``A_log`` and ``dt``); :data:`backward_recomputes` counts
+these. The forward on the card never runs :func:`ssd_chunked`. Launching
+the kernel on such inputs any other way (:func:`kernel_forward` under
+grad) raises.
 """
 from __future__ import annotations
 
@@ -38,6 +52,8 @@ from repro_torch.kernels import _build
 
 # launches of the kernel in this process (the plain version counts none)
 launches: Dict[str, int] = {"ssd_scan": 0}
+# backward passes of SSDScan (each recomputes ssd_chunked)
+backward_recomputes: Dict[str, int] = {"ssd_scan": 0}
 
 DEFAULT_CHUNK = 128
 TILE = 64                          # rows of the kernel's query and key tiles
@@ -62,6 +78,7 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     launches["ssd_scan"] = 0
+    backward_recomputes["ssd_scan"] = 0
 
 
 def library() -> ctypes.CDLL:
@@ -123,7 +140,8 @@ def ssd_chunked(X, A, Bc, Cc, chunk: int, init_state=None):
     Cc: (b, l, n)     state read-out
     Returns (Y: (b, l, h, p) in X.dtype, final_state: (b, h, p, n) f32).
     The products run in the operands' promoted dtype, as ``jnp.einsum``
-    promotes them (float32 for the model's bf16 X, Bc, Cc and f32 A).
+    promotes them (float32 for the model's bf16 X, Bc, Cc and f32 A);
+    float64 operands keep float64 throughout, states included.
     """
     b, l, h, p = X.shape
     n = Bc.shape[-1]
@@ -132,6 +150,7 @@ def ssd_chunked(X, A, Bc, Cc, chunk: int, init_state=None):
                          f"chunk {chunk}")
     ct = torch.promote_types(torch.promote_types(X.dtype, A.dtype),
                              torch.promote_types(Bc.dtype, Cc.dtype))
+    st = torch.promote_types(ct, torch.float32)     # the states' dtype
     c, q = l // chunk, chunk
     Xc = X.to(ct).reshape(b, c, q, h, p)
     Ac = A.to(ct).reshape(b, c, q, h).movedim(-1, 1)       # (b, h, c, q)
@@ -147,12 +166,12 @@ def ssd_chunked(X, A, Bc, Cc, chunk: int, init_state=None):
     # chunk -> state contributions
     decay_states = torch.exp(A_cum[..., -1:] - A_cum)      # (b, h, c, q)
     states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bb, decay_states, Xc)
-    states = states.float()
+    states = states.to(st)
 
     # inter-chunk recurrence
-    chunk_decay = torch.exp(A_cum[..., -1]).float()        # (b, h, c)
-    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=X.device)
-             if init_state is None else init_state.float())
+    chunk_decay = torch.exp(A_cum[..., -1]).to(st)         # (b, h, c)
+    carry = (torch.zeros((b, h, p, n), dtype=st, device=X.device)
+             if init_state is None else init_state.to(st))
     prev = []
     for ci in range(c):                 # emit the state *before* each chunk
         prev.append(carry)
@@ -176,6 +195,9 @@ def _check(X, Adt, Bc, Cc, chunk: int) -> None:
         raise ValueError(f"X must be (B, S, H, P); got {tuple(X.shape)}")
     B, S, H, P = X.shape
     N = Bc.shape[-1]
+    if chunk <= 0 or S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the SSD "
+                         f"chunk {chunk}")
     if tuple(Adt.shape) != (B, S, H) or Bc.dim() != 3 \
             or tuple(Bc.shape[:2]) != (B, S) or Cc.shape != Bc.shape:
         raise ValueError(f"Adt {tuple(Adt.shape)}, Bc {tuple(Bc.shape)}, Cc "
@@ -204,14 +226,51 @@ def _check(X, Adt, Bc, Cc, chunk: int) -> None:
 
 def ssd_scan(X, Adt, Bc, Cc, *, chunk: int = DEFAULT_CHUNK,
              backend: str = "auto") -> torch.Tensor:
-    """Chunked SSD scan. X: (B,S,H,P); Adt: (B,S,H); Bc/Cc: (B,S,N)."""
+    """Chunked SSD scan. X: (B,S,H,P); Adt: (B,S,H); Bc/Cc: (B,S,N).
+    Differentiable through :class:`SSDScan` when grad is enabled and an
+    input requires it."""
     S = X.shape[1]
     chunk = min(chunk, S)
     if chunk <= 0 or S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the SSD "
                          f"chunk {chunk}")
+    if _build.needs_grad(X, Adt, Bc, Cc):
+        return SSDScan.apply(X, Adt, Bc, Cc, chunk, backend)
+    return _forward(X, Adt, Bc, Cc, chunk, backend)
+
+
+def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
     if not _build.use_kernel(X, backend, "ssd_scan"):
         return ssd_chunked(X, Adt, Bc, Cc, chunk)[0]
+    return kernel_forward(X, Adt, Bc, Cc, chunk=chunk)
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel's forward; the backward recomputes :func:`ssd_chunked`
+    from the saved X, Adt, Bc, Cc and returns its autograd gradients."""
+
+    @staticmethod
+    def forward(ctx, X, Adt, Bc, Cc, chunk, backend):
+        ctx.save_for_backward(X, Adt, Bc, Cc)
+        ctx.chunk = chunk
+        return _forward(X, Adt, Bc, Cc, chunk, backend)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        backward_recomputes["ssd_scan"] += 1
+        grads = _build.recompute_grads(
+            lambda *a: ssd_chunked(*a, ctx.chunk)[0], ctx.saved_tensors,
+            ctx.needs_input_grad[:4], grad_y)
+        return (*grads, None, None)
+
+
+def kernel_forward(X, Adt, Bc, Cc, *, chunk: int) -> torch.Tensor:
+    """Launch the CUDA kernel (``chunk`` at most S, dividing it) on CUDA
+    tensors. No autograd: raises when grad is enabled and an input
+    requires it (call :func:`ssd_scan`, which routes such inputs through
+    :class:`SSDScan`)."""
+    _build.check_no_grad("ssd_scan", X, Adt, Bc, Cc)
+    _build.use_kernel(X, "cuda", "ssd_scan")
     _check(X, Adt, Bc, Cc, chunk)
     B, S, H, P = X.shape
     Y = torch.empty((B, S, H, P), dtype=X.dtype, device=X.device)

@@ -1,18 +1,82 @@
-"""Serving step functions, ported from ``repro.launch.steps``: the prefill
-step (``forward`` and the argmax at the last position; it runs the
-flash-attention or SSD-scan kernel in every block) and the decode step.
+"""Step functions, ported from ``repro.launch.steps``: the train step
+(``make_train_step``: loss, backward, AdamW, with gradient accumulation
+over microbatches), the prefill step
+(``forward`` and the argmax at the last position) and the decode step.
+The train and prefill steps run the flash-attention or SSD-scan kernel in
+every block; the train step's backward recomputes each block
+(``cfg.remat``) and takes the kernels' gradients through their
+``autograd.Function``s.
 
-The reference's dry-run specs and train step are not ported. The
-reference lowers the prefill step with bfloat16 params
-(``steps.py:128``); here the caller casts (``repro_torch.models.model.
-cast``) before it calls the step.
+The reference's dry-run specs (``batch_specs``, ``build_cell``) wait for
+the dry-run port (``ROADMAP.md`` B7). The reference lowers the prefill
+step with bfloat16 params (``steps.py:128``); here the caller casts
+(``repro_torch.models.model.cast``) before it calls the step.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.train import optimizer as OPT
+
+BIG_MODEL_PARAMS = 1.5e11  # above this, store Adam moments in bf16
+
+
+def make_opt_hparams(cfg: ModelConfig, **overrides) -> OPT.OptHParams:
+    state_dtype = "bfloat16" if cfg.param_count() > BIG_MODEL_PARAMS \
+        else "float32"
+    return OPT.OptHParams(state_dtype=state_dtype, **overrides)
+
+
+def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
+                    microbatches: int = 1):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``: one AdamW step on the batch's next-token loss. The model's
+    parameters must require grad; they and the optimizer state are updated
+    in place (the reference returns new trees). ``batch`` holds tensors on
+    the model's device (``tokens`` and ``labels``, (B, S) int). Metrics are
+    0-d tensors: ``loss``, ``nll``, the family's aux losses, ``grad_norm``
+    (before clipping) and ``lr``. Each parameter's ``.grad`` is left set
+    after the step, as the gradient of this batch.
+
+    With ``microbatches`` > 1 (gradient accumulation, the reference's
+    ``trainer._accumulate_train_step``) the batch is cut into that many
+    sequential slices along its first axis; their float32 gradients are
+    summed in order (``.grad`` accumulates), then divided by their number,
+    and the loss and metrics are averaged over the slices.
+
+    Each slice's forward and the optimizer are profiler ranges
+    (``train_step/forward``, ``train_step/optimizer``; the backward runs on
+    autograd's own thread, so a range around it would hold none of its
+    work); a range costs nothing when no profiler runs."""
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        size = next(iter(batch.values())).shape[0] // microbatches
+        loss_sum, mets = 0.0, []
+        for i in range(microbatches):
+            one = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            with record_function("train_step/forward"):
+                loss, met = M.loss_fn(model, cfg, one)
+            loss.backward()   # .grad accumulates: g_1 + g_2 + ...
+            loss_sum = loss_sum + loss.detach()
+            mets.append({k: v.detach() for k, v in met.items()})
+        if microbatches > 1:
+            for p in params.values():
+                p.grad.div_(microbatches)
+        grads = {k: p.grad for k, p in params.items()}
+        with record_function("train_step/optimizer"):
+            _, opt_state, opt_metrics = OPT.apply_updates(params, grads,
+                                                          opt_state, hp)
+        metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                   for k in mets[0]}
+        return model, opt_state, {"loss": loss_sum / microbatches,
+                                  **metrics, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

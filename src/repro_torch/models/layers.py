@@ -1,21 +1,25 @@
 """Shared LM layers, ported from ``repro.models.layers``: RMS norm, RoPE,
-GQA attention (prefill through the flash-attention kernel, one-token
-decode against a KV cache), SwiGLU MLP, embeddings.
+GQA attention (prefill and training through the flash-attention kernel,
+one-token decode against a KV cache), SwiGLU MLP, embeddings, and the
+training loss (:func:`cross_entropy_loss`).
 
 Parameters live in ``nn.Module``s whose attribute names and tensor shapes
 are the reference's pytree keys and shapes, so ``repro_torch.convert``
 carries them across by name. The apply functions are plain functions over
 those modules, as the reference's are over its dicts, and cast each weight
 to the activations' dtype where they use it. Parameters are float32
-(``param_dtype``) when made; the serving paths cast them to bfloat16. The
-port serves only: no parameter requires grad.
+(``param_dtype``) when made, and none requires grad: serving (which
+casts them to bfloat16) builds no autograd graph. Training makes them
+trainable itself (``repro_torch.train.trainer.Trainer`` calls
+``model.requires_grad_(True)``).
 
 Out of this port so far (``ROADMAP.md``): ``local_attention`` (sliding
-window, the hybrid family), cross attention (vlm) and the loss.
+window, the hybrid family) and cross attention (vlm).
 ``causal_attention`` runs the flash kernel on the card and, on the CPU,
 the reference's own two regimes (``_sdpa`` and online-softmax blocks) with
-their roundings. ``constrain`` and ``remat_wrap`` have
-no meaning on one card without a mesh and are dropped.
+their roundings. ``constrain`` has no meaning on one card without a mesh
+and is dropped; ``remat_wrap`` becomes ``torch.utils.checkpoint`` per
+block in the families' ``forward``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
+                                     reference_attention)
+from repro_torch.kernels.ref import repeat_kv as _repeat_kv
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -49,6 +57,20 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
         scale = 1.0 / math.sqrt(max(fan_in, 1))
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     w.mul_(scale)
+
+
+def remat_apply(cfg, fn, *args):
+    """``fn(*args)``, one block; with ``cfg.remat`` and grad enabled its
+    activations are not kept but recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the reference's
+    ``remat_wrap`` at its default ``"full"`` policy (``"dots"`` is not
+    ported)."""
+    if cfg.remat and torch.is_grad_enabled():
+        if cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported; 'full' is")
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -127,29 +149,27 @@ def _project_qkv(p, x, positions, theta):
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
-def _repeat_kv(k, num_heads):
-    """(B,S,KV,hd) -> (B,S,H,hd) by repeating each kv head."""
-    kv = k.shape[2]
-    if kv == num_heads:
-        return k
-    return torch.repeat_interleave(k, num_heads // kv, dim=2)
-
-
 # ---------------------------------------------------------------------------
 # attention cores
 # ---------------------------------------------------------------------------
 
 
-# the reference's causal_attention: _sdpa up to this many positions, blocks
-# of BLOCK_Q queries against BLOCK_KV keys above
-BLOCK_Q, BLOCK_KV = 512, 1024
+def reference_route(x: torch.Tensor, backend: str) -> bool:
+    """Whether a block runs the reference's own functions
+    (:func:`reference_attention`, ``ssm.ssd_chunked``, autograd straight
+    through them) rather than a kernel wrapper: for ``backend="auto"`` on
+    the CPU."""
+    return backend == "auto" and not x.is_cuda
 
 
 def causal_attention(q, k, v, *, backend: str = "auto"):
     """Causal GQA attention. q: (B,S,H,hd); k, v: (B,S,KV,hd).
 
     On the card, and wherever ``backend`` names one, it runs the
-    flash-attention kernel's wrapper (``ops.flash_attention``). In
+    flash-attention kernel's wrapper (``ops.flash_attention``); when grad
+    is enabled and an input requires it, the wrapper goes through its
+    ``autograd.Function`` (the kernel forward, the gradient of
+    :func:`reference_attention` recomputed in the backward). In
     bfloat16 the kernel rounds the unnormalised probabilities of each
     64-key tile to bfloat16 before P.V and keeps scores, row sums and the
     accumulator in float32; its plain version (``backend="torch"``, like
@@ -157,63 +177,13 @@ def causal_attention(q, k, v, *, backend: str = "auto"):
 
     On the CPU with ``backend="auto"``, the model's plain path, it follows
     the reference's ``causal_attention`` op for op
-    (:func:`reference_attention`), rounding where it rounds: the scores
-    come out of the activations' dtype product, and the probabilities are
-    cast to it before P.V. In float32 the two paths agree to rounding; in
-    bfloat16 only this one follows the reference's rounding order."""
-    if backend == "auto" and not q.is_cuda:
+    (:func:`reference_attention`, autograd straight through it), rounding
+    where it rounds: the scores come out of the activations' dtype
+    product, and the probabilities are cast to it before P.V. In float32 the two paths agree to rounding; in bfloat16
+    only this one follows the reference's rounding order."""
+    if reference_route(q, backend):
         return reference_attention(q, k, v)
     return ops.flash_attention(q, k, v, backend=backend)
-
-
-def _sdpa(q, k, v, mask, scale):
-    """The reference's plain attention (``layers._sdpa``), k and v already
-    repeated to H heads; mask: (Sq, Sk) bool."""
-    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
-    scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v)
-
-
-def reference_attention(q, k, v):
-    """The reference's ``causal_attention``: ``_sdpa`` while S fits one
-    block, else an online softmax over blocks of :data:`BLOCK_Q` queries
-    and :data:`BLOCK_KV` keys (every key block, masked ones included), with
-    the scores of each block from the activations' dtype product and its
-    unnormalised probabilities rounded to that dtype before P.V. A last
-    block may be short (the reference's blocks divide S)."""
-    B, S, H, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
-    k = _repeat_kv(k, H)
-    v = _repeat_kv(v, H)
-    if S <= max(BLOCK_Q, BLOCK_KV):
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                     device=q.device))
-        return _sdpa(q, k, v, mask, scale)
-    pos = torch.arange(S, device=q.device)
-    out = []
-    for q0 in range(0, S, BLOCK_Q):
-        qi, qp = q[:, q0:q0 + BLOCK_Q], pos[q0:q0 + BLOCK_Q]
-        acc = torch.zeros((B, H, qi.shape[1], hd), dtype=torch.float32,
-                          device=q.device)
-        m = torch.full((B, H, qi.shape[1]), -1e30, device=q.device)
-        l = torch.zeros_like(m)
-        for k0 in range(0, S, BLOCK_KV):
-            s = torch.einsum("bqhk,bshk->bhqs", qi,
-                             k[:, k0:k0 + BLOCK_KV]).float() * scale
-            s = torch.where(qp[:, None] >= pos[None, k0:k0 + BLOCK_KV], s,
-                            -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqs,bshk->bhqk", p.to(qi.dtype),
-                v[:, k0:k0 + BLOCK_KV]).float()
-            m = m_new
-        o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out.append(o.movedim(1, 2).to(q.dtype))
-    return torch.cat(out, dim=1)
 
 
 def decode_attention(q, cache_k, cache_v, cur_len):
@@ -364,3 +334,16 @@ def unembed_apply(p, x):
     if hasattr(p, "out"):
         return x @ p.out.to(x.dtype)
     return x @ p.tok.to(x.dtype).T
+
+
+def cross_entropy_loss(logits, labels, vocab_size):
+    """Mean NLL over tokens, in float32; the padded-vocabulary tail of the
+    logits is masked to -1e30 first (the reference's, ``layers.py:481``)."""
+    pv = logits.shape[-1]
+    logits = logits.float()
+    if pv != vocab_size:
+        pad_mask = torch.arange(pv, device=logits.device) < vocab_size
+        logits = torch.where(pad_mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

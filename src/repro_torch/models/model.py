@@ -1,10 +1,11 @@
 """Model dispatcher, ported from ``repro.models.model``: family ->
-(build, forward, init_cache, decode_step).
+(build, forward, init_cache, decode_step), and ``loss_fn`` (next-token
+cross entropy plus the auxiliary losses of ``AUX_COEFS``).
 
 Ported families: ``dense`` (``transformer``) and ``ssm`` (``ssm``). The
 ``moe`` and ``vlm`` families (in ``transformer``), ``hybrid`` and
 ``audio`` raise NotImplementedError naming their ``ROADMAP.md`` item. The
-loss and the dry-run's abstract init are not ported (no training yet).
+dry-run's abstract init is not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+AUX_COEFS = {"load_balance": 0.01, "router_z": 0.001}
 
 _NOT_PORTED = {"hybrid": "models/rglru.py with local attention",
                "audio": "models/whisper.py",
@@ -89,3 +93,16 @@ def decode_step(model: nn.Module, cfg: ModelConfig, cache, tokens,
     int32 tensor. Returns (logits, new cache)."""
     return _family_module(cfg).decode_step(model, cfg, cache, tokens,
                                            cur_len)
+
+
+def loss_fn(model: nn.Module, cfg: ModelConfig, batch, *,
+            backend: str = "auto"):
+    """Next-token loss. batch: {"tokens", "labels", + modality extras}.
+    Returns (loss, {"nll": loss, **aux}); the dense and ssm families have
+    no auxiliary losses (the MoE family's add ``AUX_COEFS`` terms)."""
+    logits, aux = forward(model, cfg, batch, backend=backend)
+    loss = L.cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
+    for name, coef in AUX_COEFS.items():
+        if name in aux:
+            loss = loss + coef * aux[name] / max(cfg.num_layers, 1)
+    return loss, {"nll": loss, **aux}

@@ -1,12 +1,16 @@
 """Mamba-2 (SSD, state-space duality) blocks, attention-free LM, ported from
 ``repro.models.ssm``.
 
-Prefill runs the chunked SSD algorithm through the SSD-scan kernel
-(``repro_torch.kernels.ops.ssd_scan``; on the CPU its plain version,
-:func:`ssd_chunked`, which is the reference's ``ssd_chunked``); decode is
-the constant-memory recurrent state update. Caches keep the reference's
-stacked layout: ``conv`` (layers, batch, W-1, C) bfloat16 and ``ssm``
-(layers, batch, H, P, N) float32.
+Prefill and training run the chunked SSD algorithm through the SSD-scan
+kernel (``repro_torch.kernels.ops.ssd_scan``, differentiable through its
+``autograd.Function``); on the CPU through :func:`ssd_chunked` itself,
+the reference's ``ssd_chunked``, with autograd straight through it. With
+``cfg.remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``remat_wrap``), so a train
+step runs the kernel twice per block. Decode is the constant-memory
+recurrent state update. Caches keep the reference's stacked layout:
+``conv`` (layers, batch, W-1, C) bfloat16 and ``ssm`` (layers, batch, H,
+P, N) float32.
 """
 from __future__ import annotations
 
@@ -131,8 +135,11 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
     A = -torch.exp(p.A_log)                                 # (H,)
     Adt = (dt * A).float()                                  # (B,S,H), < 0
     Xdt = Xh * dt[..., None].to(Xh.dtype)
-    Y = ops.ssd_scan(Xdt, Adt, Bc, Cc, chunk=min(cfg.ssm_chunk, S),
-                     backend=backend)
+    chunk = min(cfg.ssm_chunk, S)
+    if L.reference_route(Xdt, backend):
+        Y = ssd_chunked(Xdt, Adt, Bc, Cc, chunk)[0]
+    else:
+        Y = ops.ssd_scan(Xdt, Adt, Bc, Cc, chunk=chunk, backend=backend)
     Y = Y + Xh * p.D.to(Xh.dtype)[None, None, :, None]
     y = Y.reshape(B, S, di)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
@@ -188,7 +195,7 @@ def forward(model: MambaLM, cfg: ModelConfig, batch, *,
     the SSD kernel."""
     x = L.embed_apply(model.embed, batch["tokens"], getattr(torch, cfg.dtype))
     for blk in model.blocks:
-        x = _ssm_block_apply(blk, x, cfg, backend)
+        x = L.remat_apply(cfg, _ssm_block_apply, blk, x, cfg, backend)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed_apply(model.embed, x), {}
 

@@ -4,8 +4,11 @@
 The reference stacks every block leaf on a leading ``layers`` axis and runs
 the blocks with ``jax.lax.scan``; here the blocks are an ``nn.ModuleList``
 run in a Python loop (``repro_torch.convert`` slices the stacked arrays
-per layer). The KV cache keeps the reference's stacked layout,
-``(layers, batch, max_len, KV, hd)`` bfloat16.
+per layer). With ``cfg.remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``remat_wrap``), so a train
+step runs the flash kernel twice per block. The KV cache keeps the
+reference's stacked layout, ``(layers, batch, max_len, KV, hd)``
+bfloat16.
 
 The ``moe`` and ``vlm`` families of the reference's module are not ported
 yet (``ROADMAP.md``): building or running one raises NotImplementedError.
@@ -100,7 +103,8 @@ def forward(model: DenseLM, cfg: ModelConfig, batch, *,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     for blk in model.blocks:
-        x = _block_apply(blk, x, cfg, positions, backend)
+        x = L.remat_apply(cfg, _block_apply, blk, x, cfg, positions,
+                          backend)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed_apply(model.embed, x), {}
 

@@ -1,0 +1,112 @@
+"""AdamW + learning-rate schedules + global-norm clipping, ported from
+``repro.train.optimizer``.
+
+Parameters, gradients and moments are dicts of tensors keyed by parameter
+name (``dict(model.named_parameters())``), in place of the reference's
+pytrees; the state is ``{"m": {name: t}, "v": {name: t}, "step": () int32
+tensor}``. Every step is the reference's float32 arithmetic in the
+reference's order (``apply_updates``, ``optimizer.py:69-103``): clip by the
+global norm, the moments' EMAs, bias correction, ``eps`` added to
+``sqrt(v_hat)``, decoupled weight decay, then ``p - lr * delta``. Moments
+can be stored in bfloat16 (``state_dtype``), rounded once per step from
+their float32 update, as in the reference. ``torch.optim.AdamW`` is not
+used: its ``eps``, clipping and decay differ from the reference.
+
+Weight decay follows the reference's rule, which is on its *stacked*
+arrays: it decays every array with ``ndim >= 2``, and its block parameters
+carry a leading layer axis, so every parameter under ``blocks`` decays
+(per-layer norms, ``A_log``, ``D``, ``b_dt``, ``conv_b`` included) and only
+top-level 1-D tensors such as ``final_norm`` do not. The port keeps one
+module per layer, so :func:`decays` counts that axis back in.
+
+Unlike the reference, :func:`apply_updates` updates the parameter and
+moment tensors in place (the trainer's 1.2B-parameter state would
+otherwise be held twice on the card) and returns the same dicts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptHParams:
+    learning_rate: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    state_dtype: str = "float32"  # bf16 halves optimizer memory
+
+
+def lr_schedule(hp: OptHParams, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup then cosine decay to min_lr_ratio (float32)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(hp.warmup_steps, 1)
+    prog = torch.clamp((step - hp.warmup_steps)
+                       / max(hp.decay_steps - hp.warmup_steps, 1), 0.0, 1.0)
+    cos = hp.min_lr_ratio + (1 - hp.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return hp.learning_rate * torch.where(step < hp.warmup_steps, warm, cos)
+
+
+def init_state(params: Dict[str, torch.Tensor], hp: OptHParams) -> dict:
+    """Zero moments in ``hp.state_dtype`` beside each parameter, step 0."""
+    dt = getattr(torch, hp.state_dtype)
+    device = next(iter(params.values())).device
+    return {"m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                  for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                  for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether the reference decays this parameter: its array has
+    ``ndim >= 2``, where a parameter under ``blocks`` has one more axis
+    (the stacked layers) than the port's per-layer tensor."""
+    return p.dim() + name.startswith("blocks.") >= 2
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree.values()))
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor], state: dict,
+                  hp: OptHParams):
+    """One AdamW step, in place. Returns (params, state, metrics) with
+    metrics ``{"grad_norm", "lr"}`` as float32 0-d tensors (the norm
+    before clipping)."""
+    step = state["step"] + 1
+    lr = lr_schedule(hp, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(hp.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    step32 = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(hp.b1, dtype=torch.float32,
+                                       device=step.device), step32)
+    bc2 = 1.0 - torch.pow(torch.tensor(hp.b2, dtype=torch.float32,
+                                       device=step.device), step32)
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m32 = hp.b1 * m.float() + (1 - hp.b1) * g
+        v32 = hp.b2 * v.float() + (1 - hp.b2) * torch.square(g)
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + hp.eps)
+        if decays(name, p):  # decoupled weight decay, the reference's rule
+            delta = delta + hp.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m32)
+        v.copy_(v32)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

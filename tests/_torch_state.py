@@ -4,6 +4,7 @@ model fitted by the JAX reference (``repro``) into the PyTorch port
 import dataclasses
 
 import numpy as np
+import pytest
 
 from repro.api.oracle import LatencyOracle
 from repro.core import workloads
@@ -102,3 +103,18 @@ def carry_oracle(ref_oracle, device="cpu"):
     return TorchOracle(profet_from_numpy(state_from_repro(ref_oracle.profet),
                                          device=device),
                        dataset_from_repro(ref_oracle.dataset))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test on one torch thread, restoring the count after: the
+    training tests' SMOKE-size ops run as fast on one thread, and the
+    suite's parallel workers then do not oversubscribe the cores. A test
+    module that imports this fixture uses it for every test."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -18,6 +18,18 @@ def _modules():
         for p in PKG.rglob("*.py"))
 
 
+def test_module_list_covers_every_package():
+    """The modules the import checks walk include every package of the
+    port, the training packages among them."""
+    mods = _modules()
+    for m in ("repro_torch.data.pipeline", "repro_torch.train.optimizer",
+              "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+              "repro_torch.train.fault_tolerance", "repro_torch.launch.train",
+              "repro_torch.launch.steps", "repro_torch.calibrate.controller",
+              "repro_torch.serve.engine", "repro_torch.kernels.ssd_scan"):
+        assert m in mods, m
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     # a subprocess: this test process already imported jax (conftest)
     code = (
