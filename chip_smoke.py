@@ -127,6 +127,29 @@ The LM training path, at full published width:
      on the card and on the CPU bit for bit, and a fresh ``Trainer``
      resumes from the last one.
 
+The remaining LM families (moe, vlm, audio, hybrid), after phase 13:
+
+ 14. a float32 SMOKE forward and 3 decode steps of dbrx-132b, grok-1-314b,
+     llama-3.2-vision-90b (gates 0.5 and -0.3), whisper-tiny (``enc_out``
+     filled by ``encode``) and recurrentgemma-2b (two windows) on the card
+     against the CPU from the same params (1e-5 of max |logit|); then, one
+     model at a time at full width, random weights from ``--seed`` rounded
+     to bf16 values: dbrx-132b (2 layers; 7.75 G params), llama-3.2-vision-
+     90b (4 self + 1 cross layers; 6.38 G), whisper-tiny and
+     recurrentgemma-2b (whole). For each, the float32 forward through the
+     flash kernel against the plain path (atol / rtol 1e-4, where the
+     family launches it), the bf16 prefill step on (4, 2048) tokens ((4,
+     448) for Whisper's decoder, with 1,500 frames; the vlm with 1,024
+     patches): flash launches per prefill as derived from the config (2,
+     4, 4, 0), next tokens, the share of dbrx's token-expert choices
+     dropped by capacity, median time of 5, tokens/s, peak memory, one
+     traced prefill of the hybrid (its ``rglru/scan`` and
+     ``attention/local`` ranges), and ``Engine`` serving 8 requests as in
+     phase 8; then the flash kernel at that prefill's inputs against its
+     plain version (bf16 bar, and its float32 route on the inputs cast,
+     float32 bar), timed beside its plain version and SDPA. Its wall time
+     is printed. grok-1-314b runs at SMOKE only.
+
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
 result; the line before it lists every kernel with its launches, error,
@@ -294,12 +317,14 @@ def is_kernel(name, key) -> bool:
     return f"{name}<" in key or f"{name}(" in key
 
 
-# the train step's profiler ranges (launch/steps.py), and the kernels'
-# Function backwards, whose device time traces report inclusive of what
-# they launch
-RANGES = ("train_step/",)
+# the train step's profiler ranges (launch/steps.py), the hybrid's RG-LRU
+# scan and local attention ranges (models/rglru.py, models/layers.py), and
+# the kernels' Function backwards, whose device time traces report
+# inclusive of what they launch
+RANGES = ("train_step/", "rglru/", "attention/")
 TRACED_SPANS = ("train_step/forward", "train_step/optimizer",
-                "FlashAttentionBackward", "SSDScanBackward")
+                "FlashAttentionBackward", "SSDScanBackward", "rglru/scan",
+                "attention/local")
 
 
 def kernel_kind(key) -> str:
@@ -1368,10 +1393,39 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
     return errs, cases, hmma
 
 
+def kernel_row(torch, name, source, replaces, kern, plain, lib, work,
+               dtype, launches, err, tag="") -> dict:
+    """One LM kernel's line: its time at these inputs beside its bound (at
+    the peak of the inputs' dtype), its plain version's time and the
+    library call's (None where there is none)."""
+    b_ms, b_by = bound_ms(*work, ops_per_s=(
+        BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S))
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/csrc/{source}.cu",
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": time_kernel_ms(torch, kern, iters=10),
+           "plain_ms": time_plain_ms(torch, plain, iters=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": (time_kernel_ms(torch, lib, iters=20)
+                          if lib is not None else None)}
+    print(f"{name}{tag}: {json.dumps(row)} (bytes {work[0]}, operations "
+          f"{work[1]})")
+    return row
+
+
+def flash_runs(fa_mod, F, q, k, v) -> tuple:
+    """The flash kernel, its plain version and SDPA (causal, GQA) on the
+    same q, k, v."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return (lambda: fa_mod.flash_attention(q, k, v, backend="cuda"),
+            lambda: fa_mod.flash_attention(q, k, v, backend="torch"),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True))
+
+
 def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
-    """The LM kernels' lines: times at the main path's inputs beside their
-    bounds (at the peak of the inputs' dtype), their plain versions' times
-    and SDPA's."""
+    """The LM kernels' lines at the main path's inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -1379,36 +1433,20 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
     (q, k, v), _ = flash_in
     (X, Adt, Bc, Cc), kw = ssd_in
     chunk = kw["chunk"]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rows = []
-    for name, kern, plain, lib, work, replaces in [
-        ("flash_attention",
-         lambda: fa_mod.flash_attention(q, k, v, backend="cuda"),
-         lambda: fa_mod.flash_attention(q, k, v, backend="torch"),
-         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                enable_gqa=True),
-         flash_work(q, k), "src/repro/kernels/flash_attention.py:74"),
-        ("ssd_scan",
-         lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
-                                  backend="cuda"),
-         lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
-                                  backend="torch"),
-         None, ssd_work(X, Bc, chunk), "src/repro/kernels/ssd_scan.py:70"),
-    ]:
-        b_ms, b_by = bound_ms(*work, ops_per_s=(
-            BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S))
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name],
-            "ms": time_kernel_ms(torch, kern, iters=10),
-            "plain_ms": time_plain_ms(torch, plain, iters=3),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": (time_kernel_ms(torch, lib, iters=20)
-                           if lib is not None else None)})
-        print(f"{name}{tag}: {json.dumps(rows[-1])} (bytes {work[0]}, "
-              f"operations {work[1]})")
-    return rows
+    return [
+        kernel_row(torch, "flash_attention", "flash_attention",
+                   "src/repro/kernels/flash_attention.py:74",
+                   *flash_runs(fa_mod, F, q, k, v), flash_work(q, k),
+                   q.dtype, counts["flash_attention"],
+                   errs["flash_attention"], tag),
+        kernel_row(torch, "ssd_scan", "ssd_scan",
+                   "src/repro/kernels/ssd_scan.py:70",
+                   lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                                            backend="cuda"),
+                   lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
+                                            backend="torch"),
+                   None, ssd_work(X, Bc, chunk), X.dtype,
+                   counts["ssd_scan"], errs["ssd_scan"], tag)]
 
 
 def lm_f32_rows(torch, flash_in, ssd_in) -> list:
@@ -1775,6 +1813,273 @@ def train_phases(torch, np, args, dev, report) -> dict:
                     r["backward_recomputes_per_step"],
                 "train_step_ms": r["step_ms"]}
             for k, r in out["train"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the remaining families (phase 14)
+# ---------------------------------------------------------------------------
+
+# (arch, depth cut or None, prefill length): every width as published; the
+# depth is cut only where one card forces it (a whole model at float32 and
+# its bf16 copy must fit 80 GB); Whisper's decoder context is 448 tokens
+FAMILY_RUNS = (("dbrx-132b", 2, LM_SEQ),
+               ("llama-3.2-vision-90b", 4, LM_SEQ),
+               ("whisper-tiny", None, 448),
+               ("recurrentgemma-2b", None, LM_SEQ))
+SMOKE_FAMILIES = ("dbrx-132b", "grok-1-314b", "llama-3.2-vision-90b",
+                  "whisper-tiny", "recurrentgemma-2b")
+# the vlm cross blocks' tanh gates (attention, MLP): 0 at init, where a
+# cross block adds exactly nothing
+VLM_GATES = (0.5, -0.3)
+# a float32 SMOKE forward or decode step, card against CPU: max |diff| <=
+# this x max |CPU logit|
+RTOL_SMOKE_CARD_VS_CPU = 1e-5
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill, from the config: one per causal
+    self-attention layer (the transformer's blocks, the Whisper decoder's);
+    none for the hybrid, whose layers all have a window (plain local
+    attention), or for the ssm."""
+    return 0 if cfg.family in ("hybrid", "ssm") else cfg.num_layers
+
+
+def set_vlm_gates(torch, model) -> None:
+    with torch.no_grad():
+        for cb in getattr(model, "cross_blocks", ()):
+            cb.gate_attn.fill_(VLM_GATES[0])
+            cb.gate_mlp.fill_(VLM_GATES[1])
+
+
+def smoke_family_card_vs_cpu(torch, np, arch, dev) -> dict:
+    """Phase 14: a float32 SMOKE forward and 3 decode steps (float32
+    caches, the vlm context filled with the patches and the audio
+    ``enc_out`` with ``encode(frames)``) on the card and on the CPU from the
+    same params; the hybrid's prefill is two windows long (its two-block
+    path)."""
+    import copy
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.models import whisper as W
+
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="float32")
+    model = M.init(cfg, seed=0, device="cpu")
+    set_vlm_gates(torch, model)
+    S = 2 * cfg.attn_window if cfg.attn_window else 32
+    batch = ST.prefill_batch(cfg, 2, S, seed=0, device="cpu")
+    out = {}
+    for side, where in (("cpu", "cpu"), ("card", dev)):
+        m = copy.deepcopy(model).to(where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        logits = [M.forward(m, cfg, b)[0]]
+        cache = {k: v.float() for k, v in M.init_cache(
+            cfg, 2, 16, device=where).items()}
+        if "context" in cache:
+            cache["context"] = b["patches"]
+        if "enc_out" in cache:
+            cache["enc_out"] = W.encode(m, cfg, b["frames"])
+        for t in range(3):
+            lg, cache = M.decode_step(
+                m, cfg, cache, b["tokens"][:, t:t + 1],
+                torch.tensor(t, dtype=torch.int32, device=where))
+            logits.append(lg)
+        out[side] = [x.cpu() for x in logits]
+    gaps = [float((c - g).abs().max() / g.abs().max())
+            for c, g in zip(out["card"], out["cpu"])]
+    check(max(gaps) <= RTOL_SMOKE_CARD_VS_CPU,
+          f"{arch} SMOKE float32 forward and 3 decode steps, card against "
+          f"CPU: max |diff| / max |logit| {max(gaps):.2e} (forward "
+          f"{gaps[0]:.2e}) within {RTOL_SMOKE_CARD_VS_CPU}")
+    return {"forward": gaps[0], "decode": gaps[1:]}
+
+
+def family_prefill(torch, np, arch, layers, seq, args, dev) -> dict:
+    """Phase 14, one configuration at full width: the float32 forward
+    through the flash kernel against the plain path, then the bf16 prefill
+    step on the main path (flash launches as derived, next tokens, the MoE
+    capacity drops), its median time, peak memory, a traced prefill for
+    the hybrid, and ``Engine`` serving 8 requests. Returns the report and
+    the flash kernel's first inputs on the main path."""
+    import gc
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    full = CB.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, num_layers=layers)
+    if layers is not None:
+        print(f"cut: {arch} depth {full.num_layers} -> {layers} layers "
+              f"({cfg.family}; every width as published; "
+              f"{cfg.param_count() / 1e9:.2f} G params of "
+              f"{full.param_count() / 1e9:.1f} G)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model32 = M.init(cfg, seed=args.seed, device=dev)
+    set_vlm_gates(torch, model32)
+    # params rounded to bf16 values, so the float32 runs compute the served
+    # bf16 model's function
+    with torch.no_grad():
+        for t in model32.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    rep = {"layers": cfg.num_layers, "seq": seq,
+           "params": sum(p.numel() for p in model32.parameters()),
+           "param_count": cfg.param_count(),
+           "init_s": time.perf_counter() - t0}
+    batch = ST.prefill_batch(cfg, LM_BATCH, seq, seed=args.seed, device=dev)
+    want = flash_per_prefill(cfg)
+    pv = L.padded_vocab(cfg.vocab_size)
+    if want:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        b32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in batch.items()}
+        last32 = M.forward(model32, cfg32, b32)[0][:, -1]
+        plain32 = M.forward(model32, cfg32, b32, backend="torch")[0][:, -1]
+        err32 = float((last32 - plain32).abs().max())
+        check(bool(torch.allclose(last32, plain32, atol=1e-4, rtol=1e-4)),
+              f"{arch} float32 last-position logits through the flash "
+              f"kernel equal the plain path's within atol 1e-4 rtol 1e-4 "
+              f"(max abs diff {err32:.3e}, max |logit| "
+              f"{float(plain32.abs().max()):.3f})")
+        rep["f32_logits_max_abs_diff_vs_plain"] = err32
+        del last32, plain32, b32
+    model = M.cast(model32, cfg, torch.bfloat16)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = ST.make_prefill_step(cfg)
+
+    # the main path, recording the flash kernel's first inputs and every
+    # MoE layer's input
+    seen, moe_in = [], []
+    launch, moe_apply = fa_mod.flash_attention, MOE.moe_apply
+
+    def recording(*a, **kw):
+        if not seen:
+            seen.append(a)
+        return launch(*a, **kw)
+
+    def moe_recording(p, x, c):
+        moe_in.append((p, x))
+        return moe_apply(p, x, c)
+
+    fa_mod.flash_attention, MOE.moe_apply = recording, moe_recording
+    try:
+        lm_reset_launches()
+        nxt = step(model, batch)
+        torch.cuda.synchronize()
+        counts = lm_launches()
+    finally:
+        fa_mod.flash_attention, MOE.moe_apply = launch, moe_apply
+    check(counts["flash_attention"] == want and counts["ssd_scan"] == 0,
+          f"{arch} prefill: {counts['flash_attention']} flash launches, as "
+          f"derived from the config ({want}), and {counts['ssd_scan']} SSD")
+    check(tuple(nxt.shape) == (LM_BATCH, 1) and nxt.dtype == torch.int32
+          and bool(((nxt >= 0) & (nxt < pv)).all()),
+          f"{arch} prefill: ({LM_BATCH}, 1) int32 next tokens in [0, {pv})")
+    if moe_in:
+        keep = [MOE.route(p, x, cfg)[3] for p, x in moe_in]
+        shares = [1.0 - float(k.float().mean()) for k in keep]
+        rep["moe_dropped_share"] = sum(
+            int((~k).sum()) for k in keep) / sum(k.numel() for k in keep)
+        rep["moe_dropped_share_per_layer"] = shares
+        rep["moe_capacity"] = MOE.capacity(cfg, seq)
+        print(f"{arch}: {rep['moe_dropped_share']:.4%} of the "
+              f"{LM_BATCH} x {seq} x {cfg.num_experts_per_tok} token-expert "
+              f"choices dropped by capacity ({rep['moe_capacity']} slots "
+              f"per expert and sequence; per layer {shares})")
+        del keep, moe_in
+    last = M.forward(model, cfg, batch)[0][:, -1].float()
+    check(bool(torch.isfinite(last).all())
+          and tuple(last.shape) == (LM_BATCH, pv),
+          f"{arch} bf16 last-position logits finite, ({LM_BATCH}, {pv})")
+    del last
+
+    torch.cuda.reset_peak_memory_stats()
+    lm_reset_launches()
+    calls = 5
+    ms = median_ms(torch, lambda: step(model, batch), calls=calls)
+    check(lm_launches()["flash_attention"] == want * (calls + 1),
+          f"{arch}: {want} flash launches per timed prefill")
+    rep.update(launches=counts["flash_attention"], step_ms=ms,
+               tokens_per_s=LM_BATCH * seq / ms * 1e3,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if cfg.family == "hybrid":
+        tr = traced(torch, lambda: step(model, batch))
+        rep["trace"] = tr
+        sp = tr["spans_device_ms"]
+        check(sp.get("rglru/scan", 0) > 0 and sp.get("attention/local", 0) > 0,
+              f"{arch} traced prefill: RG-LRU scan {sp.get('rglru/scan')} "
+              f"ms and local attention {sp.get('attention/local')} ms of "
+              f"{tr['device_busy_ms']} ms busy (device time of their "
+              f"ranges)")
+    rep["serve"] = lm_serve(torch, np, arch, cfg, model, args)
+    print(f"{arch} prefill: {json.dumps(rep)}")
+    del model, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"report": rep, "flash_in": seen[0] if seen else None}
+
+
+def family_flash_row(torch, arch, q, k, v, launches) -> dict:
+    """Phase 14: the flash kernel at the inputs this family's prefill gave
+    it, held against its plain version (bf16 bar), its float32 route on the
+    same inputs cast (float32 bar), and its line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+
+    shape = (*q.shape[:3], k.shape[2], q.shape[3])
+    errs = {}
+    for dt, tol in ((torch.bfloat16, dict(atol=6e-3, rtol=3e-2)),
+                    (torch.float32, dict(atol=2e-5, rtol=1e-4))):
+        a, b, c = (t.to(dt) for t in (q, k, v))
+        got = fa_mod.flash_attention(a, b, c, backend="cuda").float()
+        want = fa_mod.flash_attention(a, b, c, backend="torch").float()
+        torch.cuda.synchronize()
+        errs[dt] = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, **tol)),
+              f"flash_attention kernel equals its plain version at "
+              f"{arch}'s {shape} {str(dt).replace('torch.', '')} (max abs "
+              f"err {errs[dt]:.3e})")
+        del got, want
+    row = kernel_row(torch, f"flash_attention/{arch}", "flash_attention",
+                     "src/repro/kernels/flash_attention.py:74",
+                     *flash_runs(fa_mod, F, q, k, v), flash_work(q, k),
+                     q.dtype, launches, errs[torch.bfloat16],
+                     f" {shape}")
+    row["f32_max_abs_err"] = errs[torch.float32]
+    return row
+
+
+def family_phases(torch, np, args, dev, report) -> list:
+    """Phase 14; returns the flash kernel's lines at the new shapes."""
+    t0 = time.perf_counter()
+    print("cut: grok-1-314b runs at SMOKE only (card against CPU); one "
+          "layer at full width would add 6.53 G params and no mechanism "
+          "dbrx-132b does not run")
+    out = {"smoke_card_vs_cpu": {
+        a: smoke_family_card_vs_cpu(torch, np, a, dev)
+        for a in SMOKE_FAMILIES}}
+    rows = []
+    for arch, layers, seq in FAMILY_RUNS:
+        r = family_prefill(torch, np, arch, layers, seq, args, dev)
+        out[arch] = r["report"]
+        if r["flash_in"] is not None:
+            rows.append(family_flash_row(torch, arch, *r["flash_in"],
+                                         launches=r["report"]["launches"]))
+        del r
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 14 (the remaining families): {out['wall_s']:.1f} s")
+    report["families"] = out
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2243,6 +2548,9 @@ def main(argv=None) -> int:
     for row in lm_rows:
         row.update(per_kernel[row["name"]])
     kernels += lm_rows
+
+    # -- 14. the remaining families --------------------------------------------
+    kernels += family_phases(torch, np, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

@@ -32,6 +32,7 @@ from repro_torch.core.predictor import Profet, ProfetConfig
 from repro_torch.core.regressors import (DNNRegressor, LinearRegressor,
                                          PackedForest, RandomForestRegressor)
 from repro_torch.core.scaling import PolyScaler
+from repro_torch.models.model import stacked
 
 _SCALER_FIELDS = ("order", "min_knob", "max_knob", "min_range")
 
@@ -128,15 +129,15 @@ def _tensor(arr: np.ndarray, dev) -> torch.Tensor:
 
 
 def _unstack(tree: dict, dev) -> dict:
-    """A reference tree (every leaf under ``"blocks"`` stacked on a leading
-    layer axis) as tensors on ``dev`` keyed by the port's parameter names
-    (``blocks.<i>.<rest>``)."""
+    """A reference tree (every leaf under a tree of ``models.model.STACKED``
+    stacked on a leading layer axis) as tensors on ``dev`` keyed by the
+    port's parameter names (``<tree>.<i>.<rest>``)."""
     state = {}
     for key, arr in _flatten(tree):
-        if key.startswith("blocks."):
-            rest = key[len("blocks."):]
+        if stacked(key):
+            top, rest = key.split(".", 1)
             for i in range(arr.shape[0]):
-                state[f"blocks.{i}.{rest}"] = _tensor(arr[i], dev)
+                state[f"{top}.{i}.{rest}"] = _tensor(arr[i], dev)
         else:
             state[key] = _tensor(arr, dev)
     return state
@@ -151,22 +152,23 @@ def _stack(named) -> dict:
     for key, t in named:
         t = t.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        if key.startswith("blocks."):
-            i, rest = key[len("blocks."):].split(".", 1)
-            per_layer.setdefault(rest, {})[int(i)] = arr
+        if stacked(key):
+            top, i, rest = key.split(".", 2)
+            per_layer.setdefault(f"{top}.{rest}", {})[int(i)] = arr
         else:
             _set(tree, key, arr)
-    for rest, layers in per_layer.items():
-        _set(tree, f"blocks.{rest}",
-             np.stack([layers[i] for i in range(len(layers))]))
+    for key, layers in per_layer.items():
+        _set(tree, key, np.stack([layers[i] for i in range(len(layers))]))
     return tree
 
 
 def lm_from_numpy(cfg, params: dict, device="cuda"):
     """The port's LM (``repro_torch.models.model``) holding ``params``, the
     reference's parameter tree as ``M.init`` returns it after
-    ``np.asarray``: nested dicts of numpy arrays, every leaf under
-    ``"blocks"`` stacked on a leading layer axis. Dtypes are kept."""
+    ``np.asarray``: nested dicts of numpy arrays, every leaf under a
+    layer tree (``"blocks"``, ``"cross_blocks"``, ``"encoder"``,
+    ``"decoder"``, ``"groups"``, ``"extra"``) stacked on a leading layer
+    axis. Dtypes are kept."""
     from repro_torch.models import model as M
     model = M.build(cfg, device="meta")
     model.load_state_dict(_unstack(params, resolve_device(device)),

@@ -88,10 +88,11 @@ def repeat_kv(k, num_heads):
 
 def _sdpa(q, k, v, mask, scale):
     """The reference's plain attention (``layers._sdpa``), k and v already
-    repeated to H heads; mask: (Sq, Sk) bool."""
+    repeated to H heads; mask: (Sq, Sk) bool, or None for no mask."""
     scores = torch.einsum("bqhk,bshk->bhqs", q, k).to(
         _acc_dtype(q.dtype)) * scale
-    scores = torch.where(mask, scores, -1e30)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 

@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --smoke --requests 8 --slots 4 --max-new 16 [--device cpu]
 
-Ported archs: ``llama3.2-1b`` (dense) and ``mamba2-130m`` (ssm). The model
-is initialised from ``--seed`` on ``--device`` (default ``cuda``; asking
-for CUDA without it raises).
+Every arch of ``configs/`` is ported (dense, moe, vlm, ssm, hybrid and
+audio families). The model is initialised from ``--seed`` on ``--device``
+(default ``cuda``; asking for CUDA without it raises); without
+``--smoke`` it is the full published config, which for the largest ones
+does not fit one card. The vlm's image context and the audio family's
+encoder output stay zeros, as in the reference's engine.
 """
 import argparse
 import sys

@@ -2,10 +2,14 @@
 (``make_train_step``: loss, backward, AdamW, with gradient accumulation
 over microbatches), the prefill step
 (``forward`` and the argmax at the last position) and the decode step.
-The train and prefill steps run the flash-attention or SSD-scan kernel in
-every block; the train step's backward recomputes each block
+The train and prefill steps run the flash-attention kernel in every
+causal self-attention layer (dense, moe and vlm blocks, the Whisper
+decoder) and the SSD-scan kernel in every Mamba-2 block; the hybrid's
+local attention and recurrence, cross attention and the MoE dispatch are
+plain torch. The train step's backward recomputes each block
 (``cfg.remat``) and takes the kernels' gradients through their
-``autograd.Function``s.
+``autograd.Function``s. :func:`prefill_batch` builds a prefill batch with
+the family's stub inputs (``patches``, ``frames``).
 
 The reference's dry-run specs (``batch_specs``, ``build_cell``) wait for
 the dry-run port (``ROADMAP.md`` B7). The reference lowers the prefill
@@ -17,7 +21,9 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import make_pipeline
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as OPT
 
@@ -36,7 +42,8 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
     metrics)``: one AdamW step on the batch's next-token loss. The model's
     parameters must require grad; they and the optimizer state are updated
     in place (the reference returns new trees). ``batch`` holds tensors on
-    the model's device (``tokens`` and ``labels``, (B, S) int). Metrics are
+    the model's device (``tokens`` and ``labels``, (B, S) int, and the
+    family's ``patches`` or ``frames``). Metrics are
     0-d tensors: ``loss``, ``nll``, the family's aux losses, ``grad_norm``
     (before clipping) and ``lr``. Each parameter's ``.grad`` is left set
     after the step, as the gradient of this batch.
@@ -77,6 +84,25 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
                                   **metrics, **opt_metrics}
 
     return train_step
+
+
+def prefill_batch(cfg: ModelConfig, batch_size: int, seq_len: int, *,
+                  seed: int = 0, device="cuda") -> dict:
+    """A prefill batch on ``device``: batch 0 of the data pipeline
+    (``data.pipeline``, seeded) without its labels, so ``tokens`` (B, S)
+    int32 and, for the vlm and audio families, the stub frontends'
+    ``patches`` (B, num_patches, d_model) or ``frames`` (B, encoder_seq,
+    d_model) cast to the model's dtype (the reference's prefill specs give
+    them the activations' dtype)."""
+    dev = resolve_device(device)
+    b = make_pipeline(cfg, seq_len=seq_len, global_batch=batch_size,
+                      seed=seed).batch_at(0)
+    out = {"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+    for k in ("patches", "frames"):
+        if k in b:
+            out[k] = torch.from_numpy(b[k]).to(
+                dev, getattr(torch, cfg.dtype))
+    return out
 
 
 def make_prefill_step(cfg: ModelConfig):

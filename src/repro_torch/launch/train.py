@@ -9,7 +9,9 @@ config is built (llama3.2-1b at full width and depth fits one H100).
 ``--device`` defaults to ``cuda`` (asking for it without CUDA raises);
 there the blocks run the flash-attention / SSD-scan kernels, forward and
 recomputed forward, with their gradients through the kernels'
-``autograd.Function``s. Ported archs: the dense family and mamba2-130m.
+``autograd.Function``s. Every family's ``loss_fn`` is ported (the moe
+family's with its aux losses); the card runs of ``chip_smoke.py`` train
+the dense family and mamba2-130m.
 The reference's ``--devices`` and ``--model-parallel`` (a mesh of host
 devices) wait for the distributed port (``ROADMAP.md`` B6).
 """

@@ -1,7 +1,9 @@
 """Shared LM layers, ported from ``repro.models.layers``: RMS norm, RoPE,
-GQA attention (prefill and training through the flash-attention kernel,
-one-token decode against a KV cache), SwiGLU MLP, embeddings, and the
-training loss (:func:`cross_entropy_loss`).
+GQA attention (causal prefill and training through the flash-attention
+kernel, sliding-window ``local_attention``, unmasked ``cross_attention``
+to a context, one-token decode against a KV cache, rolling when the cache
+is one window long), SwiGLU MLP, embeddings, and the training loss
+(:func:`cross_entropy_loss`).
 
 Parameters live in ``nn.Module``s whose attribute names and tensor shapes
 are the reference's pytree keys and shapes, so ``repro_torch.convert``
@@ -13,13 +15,15 @@ casts them to bfloat16) builds no autograd graph. Training makes them
 trainable itself (``repro_torch.train.trainer.Trainer`` calls
 ``model.requires_grad_(True)``).
 
-Out of this port so far (``ROADMAP.md``): ``local_attention`` (sliding
-window, the hybrid family) and cross attention (vlm).
 ``causal_attention`` runs the flash kernel on the card and, on the CPU,
 the reference's own two regimes (``_sdpa`` and online-softmax blocks) with
-their roundings. ``constrain`` has no meaning on one card without a mesh
-and is dropped; ``remat_wrap`` becomes ``torch.utils.checkpoint`` per
-block in the families' ``forward``.
+their roundings. ``local_attention`` and ``cross_attention`` are not
+Pallas functions in the reference (and the hybrid's head dim 256 is
+outside the flash kernel's): they are plain torch on both devices, with
+``_sdpa``'s roundings. Which of them a layer runs follows its ``window``
+alone. ``constrain`` has no meaning on one card without a mesh and is
+dropped; ``remat_wrap`` becomes ``torch.utils.checkpoint`` per block in
+the families' ``forward``.
 """
 from __future__ import annotations
 
@@ -28,11 +32,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
-                                     reference_attention)
+                                     _sdpa, reference_attention)
 from repro_torch.kernels.ref import repeat_kv as _repeat_kv
 
 # ---------------------------------------------------------------------------
@@ -84,6 +89,17 @@ def rms_norm(x, scale, eps: float = 1e-5):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * scale.float()).to(dtype)
+
+
+def add_norm(x, a, scale, eps):
+    """``x + a`` for the residual stream, rounded to x's dtype, and the RMS
+    norm of that sum taken from its float32 value: the reference's
+    compiled model fuses a residual add into the next norm's float32 cast
+    and keeps the sum's excess precision there (XLA's default), so in
+    bfloat16 the norm sees the unrounded sum while the residual carries
+    the rounded one. In float32 this is ``x + a`` and its norm."""
+    s = x.float() + a.float()
+    return s.to(x.dtype), rms_norm(s, scale, eps).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +202,47 @@ def causal_attention(q, k, v, *, backend: str = "auto"):
     return ops.flash_attention(q, k, v, backend=backend)
 
 
+def local_attention(q, k, v, window: int):
+    """Sliding-window causal attention (the reference's ``local_attention``):
+    each query sees itself and the ``window - 1`` keys before it. Up to
+    ``window`` positions this is the causal ``_sdpa``; above, S must be a
+    multiple of ``window`` and each block of ``window`` queries attends to
+    its own block and the one before (block 0 to its own alone). Plain
+    torch on both devices, under the profiler range ``attention/local``."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    with record_function("attention/local"):
+        k = _repeat_kv(k, H)
+        v = _repeat_kv(v, H)
+        if S <= window:
+            mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                         device=q.device))
+            return _sdpa(q, k, v, mask, scale)
+        if S % window:
+            raise ValueError(f"local attention over {S} positions needs a "
+                             f"multiple of the window {window}")
+        i = torch.arange(window, device=q.device)[:, None]
+        j = torch.arange(2 * window, device=q.device)[None, :]
+        mask = ((j - window) <= i) & ((i + window - j) < window)  # (w, 2w)
+        first_mask = mask & (j >= window)     # block 0: no previous block
+        out = []
+        for b0 in range(0, S, window):
+            lo = max(b0 - window, 0)
+            out.append(_sdpa(q[:, b0:b0 + window], k[:, lo:b0 + window],
+                             v[:, lo:b0 + window],
+                             mask if b0 else first_mask[:, window:], scale))
+        return torch.cat(out, dim=1)
+
+
+def cross_attention(q, k, v):
+    """Full (unmasked) attention to a fixed context, e.g. encoder outputs:
+    q (B,S,H,hd), k and v (B,Sc,KV,hd). The reference's ``_sdpa`` without
+    a mask, with its roundings."""
+    H, hd = q.shape[2], q.shape[3]
+    return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), None,
+                 1.0 / math.sqrt(hd))
+
+
 def decode_attention(q, cache_k, cache_v, cur_len):
     """One-token decode vs a KV cache.
 
@@ -211,18 +268,16 @@ def decode_attention(q, cache_k, cache_v, cur_len):
 # ---------------------------------------------------------------------------
 
 
-def _check_window(cfg) -> None:
-    if cfg.attn_window:
-        raise NotImplementedError(
-            "local (sliding-window) attention is not ported yet "
-            "(ROADMAP.md: hybrid family with local_attention)")
-
-
-def attention_apply(p, x, cfg, *, positions, backend: str = "auto"):
-    """Prefill attention over full sequences."""
-    _check_window(cfg)
+def attention_apply(p, x, cfg, *, positions, window: int = 0,
+                    backend: str = "auto"):
+    """Prefill attention over full sequences: with a ``window``, the plain
+    :func:`local_attention`; without, :func:`causal_attention` (the flash
+    kernel on the card; ``backend`` goes to it)."""
     q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
-    ctx = causal_attention(q, k, v, backend=backend)
+    if window:
+        ctx = local_attention(q, k, v, window)
+    else:
+        ctx = causal_attention(q, k, v, backend=backend)
     return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
 
 
@@ -237,22 +292,38 @@ def _onehot_cache_write(cache, new, write_at):
     return torch.where(hot, new.to(cache.dtype), cache)
 
 
-def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, cur_len):
+def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, cur_len,
+                           window: int = 0):
     """One-token decode; ``cur_len`` a scalar or (B,) int32 tensor, per slot
-    (continuous batching). Returns (out, new_cache_k, new_cache_v)."""
-    _check_window(cfg)
+    (continuous batching). With a ``window`` and a cache exactly one window
+    long, the cache is a rolling buffer: the new K/V go to ``cur_len %
+    window``, and once it is full every entry is valid (each key carries
+    its own RoPE position). Returns (out, new_cache_k, new_cache_v)."""
     B = x.shape[0]
     pos = (cur_len.expand(B, 1) if cur_len.dim() == 0
            else cur_len[:, None])
     q, k, v = _project_qkv(p, x, pos, cfg.rope_theta)
     S = cache_k.shape[1]
-    cache_k = _onehot_cache_write(cache_k, k, cur_len)
-    cache_v = _onehot_cache_write(cache_v, v, cur_len)
+    write_at = torch.remainder(cur_len, window) if window and S == window \
+        else cur_len
+    cache_k = _onehot_cache_write(cache_k, k, write_at)
+    cache_v = _onehot_cache_write(cache_v, v, write_at)
     n_valid = torch.clamp(cur_len + 1, max=S)
     ctx = decode_attention(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                            n_valid)
     out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
     return out, cache_k, cache_v
+
+
+def cross_attention_apply(p, x, context):
+    """x: (B,S,D) queries; context: (B,Sc,D), the keys' and values' source.
+    No RoPE and no bias (the reference's ``cross_attention_init`` is
+    ``attention_init`` without ``qkv_bias``)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", context, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", context, p.wv.to(x.dtype))
+    ctx = cross_attention(q, k, v)
+    return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +355,21 @@ def silu(x):
     if x.is_cuda:
         return F.silu(x)
     return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def gelu_tanh(x):
+    """GELU, tanh approximation (``jax.nn.gelu``'s default). On the card
+    ``F.gelu(x, approximate="tanh")`` (one rounding to x's dtype). On the
+    CPU, the model's plain path, the reference's own formula and rounding
+    order: ``jax.nn.gelu`` computes ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x
+    + 0.044715 * x**3))))`` in x's dtype, its two constants rounded to it
+    (0.796875 and 0.0446777 in bfloat16) and every op rounded."""
+    if x.is_cuda:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    c3 = torch.tensor(0.044715, dtype=x.dtype)
+    inner = c * (x + c3 * (x * x * x))
+    return x * (0.5 * (1 + torch.tanh(inner)))
 
 
 def mlp_apply(p, x):

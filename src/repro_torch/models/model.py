@@ -2,10 +2,10 @@
 (build, forward, init_cache, decode_step), and ``loss_fn`` (next-token
 cross entropy plus the auxiliary losses of ``AUX_COEFS``).
 
-Ported families: ``dense`` (``transformer``) and ``ssm`` (``ssm``). The
-``moe`` and ``vlm`` families (in ``transformer``), ``hybrid`` and
-``audio`` raise NotImplementedError naming their ``ROADMAP.md`` item. The
-dry-run's abstract init is not ported.
+Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
+(``transformer``), ``ssm`` (``ssm``), ``hybrid`` (``rglru``) and
+``audio`` (``whisper``). The dry-run's abstract init is not ported
+(``device="meta"`` builds a model that allocates nothing).
 """
 from __future__ import annotations
 
@@ -20,21 +20,33 @@ from repro_torch.models import layers as L
 
 AUX_COEFS = {"load_balance": 0.01, "router_z": 0.001}
 
-_NOT_PORTED = {"hybrid": "models/rglru.py with local attention",
-               "audio": "models/whisper.py",
-               "moe": "models/moe.py",
-               "vlm": "vlm cross-attention blocks"}
+# each family's model class in its module
+_CLASSES = {"dense": "TransformerLM", "moe": "TransformerLM",
+            "vlm": "TransformerLM", "ssm": "MambaLM", "hybrid": "HybridLM",
+            "audio": "WhisperLM"}
+
+# the top-level parameter trees whose leaves the reference stacks on a
+# leading layer axis; the port keeps one module per layer under them
+# (``<tree>.<i>.<rest>``)
+STACKED = ("blocks", "cross_blocks", "encoder", "decoder", "groups",
+           "extra")
+
+
+def stacked(name: str) -> bool:
+    """Whether the port's parameter ``name`` is one layer's slice of a
+    stacked array of the reference."""
+    return name.split(".", 1)[0] in STACKED
 
 
 def _family_module(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as mod
     elif cfg.family == "ssm":
         from repro_torch.models import ssm as mod
-    elif cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md, "
-            f"modules to port: {_NOT_PORTED[cfg.family]})")
+    elif cfg.family == "hybrid":
+        from repro_torch.models import rglru as mod
+    elif cfg.family == "audio":
+        from repro_torch.models import whisper as mod
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return mod
@@ -43,8 +55,7 @@ def _family_module(cfg: ModelConfig):
 def build(cfg: ModelConfig, *, device="cuda") -> nn.Module:
     """The family's module with uninitialised float32 parameters
     (``device="meta"`` allocates nothing)."""
-    mod = _family_module(cfg)
-    cls = mod.DenseLM if cfg.family == "dense" else mod.MambaLM
+    cls = getattr(_family_module(cfg), _CLASSES[cfg.family])
     return cls(cfg, device=resolve_device(device))
 
 
@@ -82,9 +93,17 @@ def forward(model: nn.Module, cfg: ModelConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device) -> Dict[str, torch.Tensor]:
-    """Zero decode cache; the batch is dim 1 of every tensor in it."""
+    """Zero decode cache; :func:`cache_batch_dims` says where the batch is
+    in each of its tensors."""
     return _family_module(cfg).init_cache(cfg, batch_size, max_len,
                                           device=device)
+
+
+def cache_batch_dims(cfg: ModelConfig) -> Dict[str, int]:
+    """The batch dim of each tensor of the family's decode cache (the
+    reference's ``"batch"`` axis): 1 for the stacked per-layer caches, 0
+    for the vlm ``context`` and the audio ``enc_out``."""
+    return dict(_family_module(cfg).CACHE_BATCH_DIMS)
 
 
 def decode_step(model: nn.Module, cfg: ModelConfig, cache, tokens,
@@ -98,8 +117,9 @@ def decode_step(model: nn.Module, cfg: ModelConfig, cache, tokens,
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch, *,
             backend: str = "auto"):
     """Next-token loss. batch: {"tokens", "labels", + modality extras}.
-    Returns (loss, {"nll": loss, **aux}); the dense and ssm families have
-    no auxiliary losses (the MoE family's add ``AUX_COEFS`` terms)."""
+    Returns (loss, {"nll": loss, **aux}); only the moe family has
+    auxiliary losses, each added with its ``AUX_COEFS`` weight divided by
+    ``num_layers`` (``forward`` sums them over the layers)."""
     logits, aux = forward(model, cfg, batch, backend=backend)
     loss = L.cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
     for name, coef in AUX_COEFS.items():

@@ -27,6 +27,9 @@ from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked  # noqa: F401
 from repro_torch.models import layers as L
 
+# the batch dim of each cache tensor (Engine resets a slot along it)
+CACHE_BATCH_DIMS = {"conv": 1, "ssm": 1}
+
 
 def ssd_reference(X, A, Bc, Cc, init_state=None):
     """Sequential recurrence oracle (Y, final state in X's dtype)."""

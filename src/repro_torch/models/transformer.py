@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, the ``dense`` family, ported from
-``repro.models.transformer``.
+"""Decoder-only transformer LM covering the ``dense``, ``moe`` and ``vlm``
+families, ported from ``repro.models.transformer``.
 
 The reference stacks every block leaf on a leading ``layers`` axis and runs
 the blocks with ``jax.lax.scan``; here the blocks are an ``nn.ModuleList``
@@ -10,8 +10,15 @@ step runs the flash kernel twice per block. The KV cache keeps the
 reference's stacked layout, ``(layers, batch, max_len, KV, hd)``
 bfloat16.
 
-The ``moe`` and ``vlm`` families of the reference's module are not ported
-yet (``ROADMAP.md``): building or running one raises NotImplementedError.
+- ``moe``: each block's FFN is ``models.moe`` (top-k routing over
+  ``num_experts``); ``forward`` sums the blocks' load-balance and router-z
+  losses, in float32.
+- ``vlm``: after every ``cross_attn_every`` self blocks comes one cross
+  block (``cross_blocks``): tanh-gated cross attention to the image
+  context (``batch["patches"]``, the stub patch-embed frontend's output)
+  and a tanh-gated MLP. Both gates start at 0, so a fresh cross block adds
+  exactly nothing. Decode reads the context from the cache's ``context``
+  (B, P, D), whose batch is dim 0.
 """
 from __future__ import annotations
 
@@ -22,13 +29,10 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md, "
-            f"modules to port)")
+# the batch dim of each cache tensor (Engine resets a slot along it)
+CACHE_BATCH_DIMS = {"k": 1, "v": 1, "context": 0}
 
 
 class Block(nn.Module):
@@ -37,7 +41,10 @@ class Block(nn.Module):
         self.attn = L.AttentionParams(cfg.d_model, cfg.num_heads,
                                       cfg.num_kv_heads, cfg.head_dim,
                                       cfg.qkv_bias, device=device)
-        self.ffn = L.MLPParams(cfg.d_model, cfg.d_ff, device=device)
+        self.ffn = (MOE.MoEParams(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                  device=device)
+                    if cfg.family == "moe"
+                    else L.MLPParams(cfg.d_model, cfg.d_ff, device=device))
         self.ln1 = L.empty((cfg.d_model,), device)
         self.ln2 = L.empty((cfg.d_model,), device)
 
@@ -48,21 +55,55 @@ class Block(nn.Module):
         self.ln2.fill_(1.0)
 
 
-class DenseLM(nn.Module):
-    """embed, blocks[num_layers], final_norm: the reference's param tree."""
+class CrossBlock(nn.Module):
+    """The vlm's image layer: xattn (no bias), mlp, ln1, ln2 and the two
+    tanh gates gate_attn, gate_mlp (scalars, 0 at init)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        _check_family(cfg)
+        self.xattn = L.AttentionParams(cfg.d_model, cfg.num_heads,
+                                       cfg.num_kv_heads, cfg.head_dim,
+                                       device=device)
+        self.mlp = L.MLPParams(cfg.d_model, cfg.d_ff, device=device)
+        self.ln1 = L.empty((cfg.d_model,), device)
+        self.ln2 = L.empty((cfg.d_model,), device)
+        self.gate_attn = L.empty((), device)
+        self.gate_mlp = L.empty((), device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.xattn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.gate_attn.zero_()
+        self.gate_mlp.zero_()
+
+
+class TransformerLM(nn.Module):
+    """embed, blocks[num_layers], final_norm and, for the vlm family,
+    cross_blocks[num_layers // cross_attn_every]: the reference's param
+    tree."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"the transformer builds the dense, moe and "
+                             f"vlm families, not {cfg.family!r}")
         self.embed = L.EmbeddingParams(cfg.vocab_size, cfg.d_model,
                                        cfg.tie_embeddings, device=device)
         self.blocks = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.num_layers))
+        if cfg.family == "vlm":
+            self.cross_blocks = nn.ModuleList(
+                CrossBlock(cfg, device=device)
+                for _ in range(cfg.num_layers // cfg.cross_attn_every))
         self.final_norm = L.empty((cfg.d_model,), device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embed.reset_parameters(generator)
         for blk in self.blocks:
+            blk.reset_parameters(generator)
+        for blk in getattr(self, "cross_blocks", ()):
             blk.reset_parameters(generator)
         self.final_norm.fill_(1.0)
 
@@ -72,41 +113,68 @@ class DenseLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _add_norm(x, a, scale, eps):
-    """``x + a`` for the residual stream, rounded to x's dtype, and the RMS
-    norm of that sum taken from its float32 value: the reference's
-    compiled block fuses the add into the norm's float32 cast and keeps
-    the sum's excess precision there (XLA's default), so in bfloat16 the
-    norm sees the unrounded sum while the residual carries the rounded
-    one. In float32 this is ``x + a`` and its norm."""
-    s = x.float() + a.float()
-    return s.to(x.dtype), L.rms_norm(s, scale, eps).to(x.dtype)
+def _ffn(p, h, cfg):
+    """The block's FFN and its aux losses (none for a dense MLP)."""
+    if cfg.family == "moe":
+        return MOE.moe_apply(p, h, cfg)
+    return L.mlp_apply(p, h), {}
 
 
 def _block_apply(p, x, cfg, positions, backend):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    x, h = _add_norm(x, L.attention_apply(p.attn, h, cfg, positions=positions,
+    x, h = L.add_norm(x, L.attention_apply(p.attn, h, cfg, positions=positions,
+                                          window=cfg.attn_window,
                                           backend=backend), p.ln2,
                      cfg.norm_eps)
-    return x + L.mlp_apply(p.ffn, h)
+    out, aux = _ffn(p.ffn, h, cfg)
+    return x + out, aux
 
 
-def forward(model: DenseLM, cfg: ModelConfig, batch, *,
+def _cross_block_apply(p, x, cfg, context):
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    x, h = L.add_norm(x, torch.tanh(p.gate_attn).to(x.dtype)
+                      * L.cross_attention_apply(p.xattn, h, context), p.ln2,
+                      cfg.norm_eps)
+    return x + torch.tanh(p.gate_mlp).to(x.dtype) * L.mlp_apply(p.mlp, h)
+
+
+def _groups(model, cfg):
+    """(self blocks, the cross block after them or None) in order: one
+    group of all blocks, or for the vlm ``cross_attn_every`` self blocks
+    and their cross block."""
+    if cfg.family != "vlm":
+        return [(model.blocks, None)]
+    every = cfg.cross_attn_every
+    return [(model.blocks[g * every:(g + 1) * every], cb)
+            for g, cb in enumerate(model.cross_blocks)]
+
+
+def forward(model: TransformerLM, cfg: ModelConfig, batch, *,
             backend: str = "auto"):
-    """batch: {"tokens": (B,S) int}. Returns (logits over the padded
-    vocabulary, aux losses: none for the dense family). ``backend`` goes
-    to the attention kernel."""
+    """batch: {"tokens": (B,S) int, and for the vlm "patches": (B,P,D)}.
+    Returns (logits over the padded vocabulary, aux losses: the summed
+    ``load_balance`` and ``router_z`` for the moe family, else none).
+    ``backend`` goes to the attention kernel."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dtype = getattr(torch, cfg.dtype)
     x = L.embed_apply(model.embed, tokens, dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    for blk in model.blocks:
-        x = L.remat_apply(cfg, _block_apply, blk, x, cfg, positions,
-                          backend)
+    aux = ({"load_balance": torch.zeros((), device=tokens.device),
+            "router_z": torch.zeros((), device=tokens.device)}
+           if cfg.family == "moe" else {})
+    context = (batch["patches"].to(dtype) if cfg.family == "vlm" else None)
+    for blocks, cross in _groups(model, cfg):
+        for blk in blocks:
+            x, a = L.remat_apply(cfg, _block_apply, blk, x, cfg, positions,
+                                 backend)
+            aux = {k: aux[k] + a[k] for k in aux}
+        if cross is not None:
+            x = L.remat_apply(cfg, _cross_block_apply, cross, x, cfg,
+                              context)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return L.unembed_apply(model.embed, x), {}
+    return L.unembed_apply(model.embed, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -116,27 +184,43 @@ def forward(model: DenseLM, cfg: ModelConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device) -> Dict[str, torch.Tensor]:
-    """Zero bfloat16 KV cache, (layers, batch, max_len, KV, hd) each."""
+    """Zero bfloat16 KV cache, (layers, batch, max_len, KV, hd) each; the
+    vlm adds the image ``context`` (batch, num_patches, d_model)."""
     shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    if cfg.family == "vlm":
+        cache["context"] = torch.zeros(
+            (batch_size, cfg.num_patches, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    return cache
 
 
-def decode_step(model: DenseLM, cfg: ModelConfig, cache, tokens, cur_len):
+def decode_step(model: TransformerLM, cfg: ModelConfig, cache, tokens,
+                cur_len):
     """tokens: (B,1) int; cur_len: () or (B,) int32 tensor. Returns
-    (logits, new cache)."""
-    x = L.embed_apply(model.embed, tokens, getattr(torch, cfg.dtype))
+    (logits, new cache). The moe family's FFN routes the one token with
+    its own capacity (never dropping at S = 1); its aux losses are
+    dropped, as in the reference."""
+    dtype = getattr(torch, cfg.dtype)
+    x = L.embed_apply(model.embed, tokens, dtype)
+    context = cache["context"].to(dtype) if cfg.family == "vlm" else None
     ks, vs = [], []
-    for i, blk in enumerate(model.blocks):
-        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
-        a, ck, cv = L.attention_decode_apply(
-            blk.attn, h, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
-            cur_len=cur_len)
-        x, h = _add_norm(x, a, blk.ln2, cfg.norm_eps)
-        x = x + L.mlp_apply(blk.ffn, h)
-        ks.append(ck)
-        vs.append(cv)
+    for blocks, cross in _groups(model, cfg):
+        for blk in blocks:
+            i = len(ks)
+            h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+            a, ck, cv = L.attention_decode_apply(
+                blk.attn, h, cfg, cache_k=cache["k"][i],
+                cache_v=cache["v"][i], cur_len=cur_len,
+                window=cfg.attn_window)
+            x, h = L.add_norm(x, a, blk.ln2, cfg.norm_eps)
+            x = x + _ffn(blk.ffn, h, cfg)[0]
+            ks.append(ck)
+            vs.append(cv)
+        if cross is not None:
+            x = _cross_block_apply(cross, x, cfg, context)
     cache = dict(cache, k=torch.stack(ks), v=torch.stack(vs))
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed_apply(model.embed, x), cache

@@ -9,6 +9,9 @@ ported from ``repro.serve.engine``.
     kernel.
   - Greedy sampling over the padded vocabulary; per-slot stop on EOS or
     ``max_new_tokens``.
+  - The vlm's image ``context`` and the audio family's ``enc_out`` stay
+    the zeros ``init_cache`` makes, as in the reference (nothing in the
+    serving path fills them).
 
 The model's floating parameters are cast to bfloat16 (a copy; the
 caller's model is left as it is). PyTorch runs the step eagerly on the
@@ -74,6 +77,7 @@ class Engine:
         self.max_len = max_len
         self.mode = mode
         self.model = M.cast(model, cfg, torch.bfloat16)
+        self._batch_dims = M.cache_batch_dims(cfg)
         self.device = next(self.model.parameters()).device
         self.queue: List[Request] = []
         self.finished: List[Request] = []
@@ -147,14 +151,15 @@ class Engine:
                 r.t_finish = time.time()
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _reset_slot(cache, slot: int) -> None:
-        """Zero one slot's state in every cache tensor, in place (the batch
-        is dim 1 of each). The attention mask hides stale KV, but the
-        recurrent family carries cumulative state that MUST be cleared when
-        a slot is reassigned."""
-        for t in cache.values():
-            t[:, slot].zero_()
+    def _reset_slot(self, cache, slot: int) -> None:
+        """Zero one slot's state in every cache tensor, in place, along that
+        tensor's own batch dim (``M.cache_batch_dims``: dim 1 of the stacked
+        per-layer caches, dim 0 of the vlm ``context`` and the audio
+        ``enc_out``). The attention mask hides stale KV, but the recurrent
+        families carry cumulative state that MUST be cleared when a slot is
+        reassigned."""
+        for name, t in cache.items():
+            t.select(self._batch_dims[name], slot).zero_()
 
     def _run_continuous(self) -> None:
         """Inflight batching: per-slot positions, immediate slot refill."""

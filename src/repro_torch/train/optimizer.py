@@ -31,6 +31,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models.model import stacked
+
 
 @dataclasses.dataclass(frozen=True)
 class OptHParams:
@@ -70,9 +72,10 @@ def init_state(params: Dict[str, torch.Tensor], hp: OptHParams) -> dict:
 
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether the reference decays this parameter: its array has
-    ``ndim >= 2``, where a parameter under ``blocks`` has one more axis
-    (the stacked layers) than the port's per-layer tensor."""
-    return p.dim() + name.startswith("blocks.") >= 2
+    ``ndim >= 2``, where a parameter of a stacked layer tree (``blocks``,
+    ``groups``, ... : ``models.model.stacked``) has one more axis (the
+    stacked layers) than the port's per-layer tensor."""
+    return p.dim() + stacked(name) >= 2
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -60,13 +60,22 @@ def fit_small_repro(members, n_trees=8, dnn_epochs=4, seed=0):
     return LatencyOracle.fit(small_dataset(), cfg)
 
 
-def lm_pair(arch: str, dtype: str = "float32", seed: int = 0, **overrides):
+# the vlm cross blocks' tanh gates (attention, MLP) the parity tests set:
+# both start at 0, and a zero gate makes its cross block add exactly 0
+VLM_GATES = (0.5, -0.3)
+
+
+def lm_pair(arch: str, dtype: str = "float32", seed: int = 0, gates=None,
+            **overrides):
     """A smoke-size LM of both packages with the same parameters: the
     reference's ``(cfg, params)`` from ``jax.random`` and the port's
     ``(cfg, model)`` carried across by ``repro_torch.convert.lm_from_numpy``
     on the CPU. ``dtype`` is the activations' dtype; ``overrides`` replace
-    config fields in both."""
+    config fields in both. ``gates``: ``(attn, mlp)`` values written into
+    every vlm cross block's tanh gates of the reference's params before they
+    are carried across (``VLM_GATES``), else the init's zeros."""
     import jax
+    import jax.numpy as jnp
 
     from repro.configs import base as CB
     from repro.models import model as JM
@@ -78,6 +87,11 @@ def lm_pair(arch: str, dtype: str = "float32", seed: int = 0, **overrides):
     tcfg = dataclasses.replace(TCB.get_config(arch, smoke=True), dtype=dtype,
                                **overrides)
     params, _ = JM.init(jax.random.PRNGKey(seed), jcfg)
+    if gates is not None and jcfg.family == "vlm":
+        cb = params["cross_blocks"]
+        params = dict(params, cross_blocks=dict(
+            cb, gate_attn=jnp.full_like(cb["gate_attn"], gates[0]),
+            gate_mlp=jnp.full_like(cb["gate_mlp"], gates[1])))
     model = lm_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                           device="cpu")
     return jcfg, params, tcfg, model

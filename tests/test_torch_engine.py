@@ -8,9 +8,11 @@ differs. Also the ``launch.serve`` driver end to end.
 
 The scheduler itself is held against the reference's
 ``repro.serve.engine.Engine`` on the same parameters and prompts, in both
-modes, for both families: decode steps, prefill and generated token
-counts, waves and completion order exactly, and the tokens as far as the
-bf16 logits' margin decides them.
+modes, for every family (dense, ssm, moe, vlm, audio, hybrid): decode
+steps, prefill and generated token counts, waves and completion order
+exactly, and the tokens as far as the bf16 logits' margin decides them.
+A slot's reset zeroes that slot alone along each cache tensor's own
+batch dim.
 """
 import pytest
 import torch
@@ -21,7 +23,7 @@ from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.serve.engine import Engine
 
-from _torch_state import lm_pair
+from _torch_state import VLM_GATES, lm_pair
 
 PROMPTS = [[1, 2, 3], [7, 8], [4, 5, 6, 9], [2, 2], [11]]
 NEW = [5, 3, 6, 2, 4]
@@ -115,12 +117,39 @@ def test_engine_serves_bf16_and_leaves_the_model_as_it_is():
         eng.run()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "dbrx-132b",
+                                  "llama-3.2-vision-90b", "whisper-tiny",
+                                  "recurrentgemma-2b"])
 def test_serve_driver_runs_on_the_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--requests", "3", "--max-new", "4"]) == 0
     out = capsys.readouterr().out
     assert "3 requests in 0 waves" in out and "generated 12 tok" in out
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m", "dbrx_132b",
+                                  "llama3_2_vision_90b", "whisper_tiny",
+                                  "recurrentgemma_2b"])
+def test_reset_slot_zeroes_only_that_slot(arch):
+    """A slot's reset zeroes that slot along each cache tensor's own batch
+    dim and touches nothing else: dim 1 of the stacked per-layer caches,
+    dim 0 of the vlm ``context`` and the audio ``enc_out``."""
+    cfg, model = _model(arch)
+    eng = Engine(cfg, model, batch_slots=3, max_len=16)
+    cache = M.init_cache(cfg, 3, 16, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=g).to(t.dtype) + 3)
+    before = {k: t.clone() for k, t in cache.items()}
+    eng._reset_slot(cache, 1)
+    dims = M.cache_batch_dims(cfg)
+    for k, t in cache.items():
+        d = dims[k]
+        assert not bool(t.select(d, 1).any()), k
+        for s in (0, 2):
+            assert torch.equal(t.select(d, s), before[k].select(d, s)), k
+    assert ("context" in cache) == (cfg.family == "vlm")
+    assert ("enc_out" in cache) == (cfg.family == "audio")
 
 
 def _serve(engine_cls, cfg, params, mode, eos=None):
@@ -180,12 +209,17 @@ def _tokens_agree(cfg, model, mode, jreqs, treqs) -> bool:
 
 
 @pytest.mark.parametrize("mode", ["continuous", "wave"])
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m", "dbrx_132b",
+                                  "llama3_2_vision_90b", "whisper_tiny",
+                                  "recurrentgemma_2b"])
 def test_engine_schedules_like_the_reference(arch, mode):
     """Without EOS the schedule depends only on the prompts and budgets:
     the port's stats and completion order equal the reference's exactly,
-    across slot reuse (5 requests, 2 slots, mixed lengths)."""
-    jcfg, params, tcfg, model = lm_pair(arch, "bfloat16")
+    across slot reuse (5 requests, 2 slots, mixed lengths). For every
+    family: the vlm with its gates set (its context stays zeros in both
+    engines), the hybrid's cache one window long, so long requests wrap
+    it."""
+    jcfg, params, tcfg, model = lm_pair(arch, "bfloat16", gates=VLM_GATES)
     jreqs, jorder, jstats = _serve(JaxEngine, jcfg, params, mode)
     treqs, torder, tstats = _serve(Engine, tcfg, model, mode)
     assert tstats == jstats

@@ -20,13 +20,15 @@ def _modules():
 
 def test_module_list_covers_every_package():
     """The modules the import checks walk include every package of the
-    port, the training packages among them."""
+    port, the training packages and every model family among them."""
     mods = _modules()
     for m in ("repro_torch.data.pipeline", "repro_torch.train.optimizer",
               "repro_torch.train.checkpoint", "repro_torch.train.trainer",
               "repro_torch.train.fault_tolerance", "repro_torch.launch.train",
               "repro_torch.launch.steps", "repro_torch.calibrate.controller",
-              "repro_torch.serve.engine", "repro_torch.kernels.ssd_scan"):
+              "repro_torch.serve.engine", "repro_torch.kernels.ssd_scan",
+              "repro_torch.models.moe", "repro_torch.models.whisper",
+              "repro_torch.models.rglru", "repro_torch.models.transformer"):
         assert m in mods, m
 
 

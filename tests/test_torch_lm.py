@@ -192,7 +192,13 @@ def test_bf16_logit_gap_stays_inside_the_bar_with_depth(arch, layers, seed):
     assert gap <= 2e-2
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"])
+# the families ported later, at their SMOKE sizes
+LATER_FAMILIES = ["dbrx_132b", "grok_1_314b", "llama3_2_vision_90b",
+                  "whisper_tiny", "recurrentgemma_2b"]
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"]
+                         + LATER_FAMILIES)
 def test_lm_numpy_round_trip_is_bitwise(arch):
     jcfg, params, _, model = lm_pair(arch)
     p = jax.tree.map(np.asarray, params)
@@ -202,7 +208,8 @@ def test_lm_numpy_round_trip_is_bitwise(arch):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "mamba2_130m"]
+                         + LATER_FAMILIES)
 def test_init_matches_reference_shapes_dtypes_and_scales(arch):
     """The port's own random init (a torch.Generator, not jax.random):
     the reference's tree, shapes and float32 dtypes; its constant leaves
@@ -240,14 +247,39 @@ def test_padded_vocabulary_takes_part_in_the_argmax():
     assert logits.shape[-1] == 256
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("dbrx_132b", "moe"), ("llama3_2_vision_90b", "vlm"),
-    ("recurrentgemma_2b", "hybrid"), ("whisper_tiny", "audio")])
-def test_unported_families_raise(arch, family):
-    cfg = TCB.get_config(arch, smoke=True)
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.build(cfg, device="meta")
+def _ref_shapes(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _ref_shapes(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tuple(v.shape)
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", TCB.ARCH_IDS)
+def test_every_config_builds_with_the_reference_tree(arch, smoke):
+    """Every configuration of ``configs/``, SMOKE and full, builds on
+    ``device="meta"`` (nothing allocated) with the reference's parameter
+    tree: each stacked leaf's shape is the port's per-layer shape with the
+    layer count in front (the reference's ``abstract_init``)."""
+    from repro.configs import base as CB
+    cfg = TCB.get_config(arch, smoke=smoke)
+    model = M.build(cfg, device="meta")
+    got, layers = {}, {}
+    for name, t in model.state_dict().items():
+        assert t.dtype == torch.float32, name
+        if M.stacked(name):
+            top, i, rest = name.split(".", 2)
+            key = f"{top}.{rest}"
+            assert got.setdefault(key, tuple(t.shape)) == tuple(t.shape)
+            assert int(i) == layers.get(key, 0), name     # in layer order
+            layers[key] = int(i) + 1
+        else:
+            got[name] = tuple(t.shape)
+    got = {k: (layers[k],) + v if k in layers else v
+           for k, v in got.items()}
+    params, _ = JM.abstract_init(CB.get_config(arch, smoke=smoke))
+    assert got == dict(_ref_shapes(params))
 
 
 def test_ssm_prefill_length_must_fit_the_chunk():

@@ -15,6 +15,7 @@ bf16 cases cover the tensor-core kernels' edges: S not a multiple of their
 128, state 64 and 128, chunks below, at and above the tile, and 16 chunks
 through the state pass.
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -25,7 +26,8 @@ from repro_torch.configs import base as CB
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.launch.steps import make_prefill_step
+from repro_torch.launch.steps import make_prefill_step, prefill_batch
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +164,50 @@ def test_prefill_launches_one_kernel_per_block(cuda, arch, S):
     step = make_prefill_step(cfg)
     assert torch.equal(step(model, {"tokens": tokens}),
                        torch.argmax(plain[:, -1:], -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("arch,S", [("dbrx_132b", 200),
+                                    ("llama3_2_vision_90b", 200),
+                                    ("whisper_tiny", 200),
+                                    ("recurrentgemma_2b", 48)])
+def test_later_families_prefill_on_the_card(cuda, arch, S):
+    """The moe, vlm, audio and hybrid prefill on the card: one flash launch
+    per causal self-attention layer (the Whisper decoder's; none for the
+    hybrid, whose local attention is plain), float32 logits within 1e-4 of
+    the plain path's and within 1e-5 x max |logit| of the same model's on
+    the CPU (vlm gates set to 0.5 and -0.3)."""
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="float32")
+    model = M.init(cfg, seed=0, device="cpu")
+    for cb in getattr(model, "cross_blocks", ()):
+        cb.gate_attn.fill_(0.5)
+        cb.gate_mlp.fill_(-0.3)
+    batch = prefill_batch(cfg, 2, S, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    fa.reset_launches()
+    logits, _ = M.forward(card, cfg, on_card)
+    want = 0 if cfg.family == "hybrid" else cfg.num_layers
+    assert fa.launches["flash_attention"] == want
+    plain, _ = M.forward(card, cfg, on_card, backend="torch")
+    torch.testing.assert_close(logits, plain, atol=1e-4, rtol=1e-4)
+    cpu, _ = M.forward(model, cfg, batch)
+    scale = float(cpu.abs().max())
+    assert float((logits.cpu() - cpu).abs().max()) <= 1e-5 * scale
+
+
+def test_causal_attention_outside_the_kernel_head_dims_raises(cuda):
+    """The hybrid's head dim 256 is outside the flash kernel's: its layers
+    route by their window to the plain local attention, and a causal layer
+    at that head dim still raises rather than leaving the kernel."""
+    cfg = dataclasses.replace(CB.get_config("recurrentgemma_2b", smoke=True),
+                              head_dim=256, dtype="bfloat16")
+    model = M.cast(M.init(cfg, seed=0, device=cuda), cfg)
+    p = model.groups[0].attn.attn
+    x = torch.randn(1, 32, cfg.d_model, device=cuda, dtype=torch.bfloat16)
+    pos = torch.arange(32, device=cuda, dtype=torch.int32)[None]
+    fa.reset_launches()
+    out = L.attention_apply(p, x, cfg, positions=pos, window=16)
+    assert out.shape == x.shape and fa.launches["flash_attention"] == 0
+    with pytest.raises(ValueError, match="head dims"):
+        L.attention_apply(p, x, cfg, positions=pos)

@@ -5,7 +5,9 @@ from the same parameters and optimizer state (carried across by
 dense family (llama3.2-1b: GQA, tied embeddings, remat on;
 codeqwen1.5-7b: MHA, qkv bias, untied embeddings) and the ssm family
 (mamba2-130m, two SSD chunks) at their SMOKE sizes, three steps, checked
-after the first and the third. Weight decay follows the reference's
+after the first and the third; in float32 also the moe (dbrx-132b, the
+aux losses' gradients through the router), vlm, audio and hybrid
+families. Weight decay follows the reference's
 stacked-ndim rule (per-layer norms decay), so the parameters can agree.
 In float32 the same holds with gradient accumulation: 2 microbatches
 against the reference trainer's ``_accumulate_train_step``.
@@ -18,7 +20,12 @@ them; the largest of the three configs in brackets):
   element of codeqwen's ``wo`` whose first gradient is at rounding level,
   so Adam's normalised step there follows the rounding; 3.14e-5 with 2
   microbatches; 5e-5 is 5% of one step at lr 1e-3]; the moments after 3
-  steps within 1e-4 of each tensor's largest moment.
+  steps within 1e-4 of each tensor's largest moment. The four later
+  families: metrics [1.9e-6, dbrx's router-z through 2 microbatches],
+  parameters [4.0e-5, dbrx with 2 microbatches; 9.9e-6 for the rest].
+  Their bfloat16 step is not held here: dbrx's bf16 grad_norm gap
+  measured 5.3e-3 at step 2, above the bar (not traced further; the bf16
+  router logits decide discrete expert choices).
 - bfloat16 (the activations; params and Adam state stay float32): loss
   within rtol 1e-3 [2.9e-4], grad_norm within rtol 5e-3 [1.15e-3]; the
   two packages round the activations at different points, and Adam turns
@@ -41,10 +48,15 @@ from repro_torch.convert import (lm_to_numpy, opt_state_from_numpy,
 from repro_torch.launch import steps as ST
 from repro_torch.train import optimizer as OPT
 
-from _torch_state import lm_pair, one_torch_thread  # noqa: F401
+from _torch_state import VLM_GATES, lm_pair, one_torch_thread  # noqa: F401
 
 HP = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=10)
 CASES = [("llama3_2_1b", 32), ("codeqwen1_5_7b", 32), ("mamba2_130m", 64)]
+# the moe (aux-loss gradients through the router), vlm (cross blocks, gates
+# set non-zero), audio and hybrid (two windows) families, held at the
+# float32 bars
+LATER_CASES = [("dbrx_132b", 32), ("llama3_2_vision_90b", 32),
+               ("whisper_tiny", 32), ("recurrentgemma_2b", 32)]
 
 
 def _leaves(tree):
@@ -57,7 +69,7 @@ def _run(arch, S, dtype, microbatches=1):
     port params, reference state, port state) after each of 3 steps. With
     ``microbatches`` > 1 the reference's step is its trainer's gradient
     accumulation (``trainer._accumulate_train_step``)."""
-    jcfg, params, tcfg, model = lm_pair(arch, dtype)
+    jcfg, params, tcfg, model = lm_pair(arch, dtype, gates=VLM_GATES)
     model.requires_grad_(True)
     jhp, hp = JOPT.OptHParams(**HP), OPT.OptHParams(**HP)
     jstate = JOPT.init_state(params, jhp)
@@ -84,8 +96,8 @@ def _check_float32(arch, S, microbatches):
     gaps = {"metrics": 0.0, "params": 0.0}
     for n, jm, m, jp, tp, jstate, state in _run(arch, S, "float32",
                                                 microbatches):
-        assert set(m) == {"loss", "nll", "grad_norm", "lr"}
-        for k in ("loss", "nll", "grad_norm", "lr"):
+        assert set(m) == set(jm)    # the moe family's aux losses too
+        for k in jm:
             gaps["metrics"] = max(gaps["metrics"], _rel(m[k], jm[k]))
             assert _rel(m[k], jm[k]) <= 1e-5, (n, k, float(m[k]),
                                                 float(jm[k]))
@@ -109,12 +121,12 @@ def _check_float32(arch, S, microbatches):
             assert np.abs(got[k] - want[k]).max() <= 1e-4 * scale, (part, k)
 
 
-@pytest.mark.parametrize("arch,S", CASES)
+@pytest.mark.parametrize("arch,S", CASES + LATER_CASES)
 def test_float32_train_step_matches_reference(arch, S):
     _check_float32(arch, S, 1)
 
 
-@pytest.mark.parametrize("arch,S", CASES)
+@pytest.mark.parametrize("arch,S", CASES + LATER_CASES)
 def test_float32_accumulated_train_step_matches_reference(arch, S):
     """Gradient accumulation: the batch of 4 as 2 microbatches of 2, the
     port's ``make_train_step(..., microbatches=2)`` against the reference
