@@ -6,8 +6,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all at once) and drives the port's three paths: PROFET serving,
-LM serving and LM training.
+source, all at once) and drives the port's paths: PROFET serving, LM
+serving, LM training, and LM training on a device mesh.
 
 The PROFET path: it fits the paper-grid predictor (4 devices, 346 cases,
 linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
@@ -149,6 +149,31 @@ The remaining LM families (moe, vlm, audio, hybrid), after phase 13:
      plain version (bf16 bar, and its float32 route on the inputs cast,
      float32 bar), timed beside its plain version and SDPA. Its wall time
      is printed. grok-1-314b runs at SMOKE only.
+
+The distributed layer, after phase 14:
+
+ 15. a process group of one rank (``nccl``, a ``FileStore`` in a temporary
+     directory) and a (1, 1) ``("data", "model")`` ``DeviceMesh``: 3 steps
+     of llama3.2-1b and 2 of mamba2-130m at full width and depth on (4,
+     2048) tokens (float32 params, bf16 activations, seed ``--seed``),
+     first through ``Trainer(mesh=None)``, then through ``Trainer(mesh=
+     ...)`` from the same state (``DTensor`` parameters, moments and batch;
+     the kernels run on the local shards): losses and grad norms within
+     rtol 1e-5 of mesh=None (printed side by side, and whether the gap is
+     exactly 0), 32 flash / 48 SSD launches a step on both with no
+     plain-version call, step time and peak memory beside phase 13's,
+     and one more step of each traced (wall, device busy, idle share);
+     ``compressed_psum`` over the NCCL group on the llama mesh step's
+     gradients, two rounds, every leaf's mean and residual bit for bit the
+     per-rank plain computation on the card, and the largest compression
+     error; the mamba mesh trainer's checkpoint restored into a mesh=None
+     ``Trainer`` on the card and on the CPU, bit for bit. Each run's counts
+     are zeroed before it and read per step; the kernels' line adds the
+     mesh run's launches (``mesh_train_*``). Then, as one card holds one
+     NCCL rank, every family at SMOKE size in float32 takes one step on a
+     (2, 2) mesh of 4 ``gloo`` ranks on this machine's CPU, held against
+     its mesh=None step at the train-step bars: this machine's torch runs
+     DTensor's sharding rules with the model axis at 2.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -2082,6 +2107,337 @@ def family_phases(torch, np, args, dev, report) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer on the card (phase 15)
+# ---------------------------------------------------------------------------
+
+# the mesh trainer against mesh=None from the same state: losses and grad
+# norms within this relative gap (the float32 train-step bar)
+RTOL_MESH = 1e-5
+# (arch, kernel, steps) of phase 15
+MESH_RUNS = (("llama3.2-1b", "flash_attention", 3),
+             ("mamba2-130m", "ssd_scan", 2))
+
+
+class PlainCalls:
+    """Counts the LM kernel wrappers' plain-version calls (a
+    ``_build.use_kernel`` that answers False) while it is entered."""
+
+    def __init__(self):
+        self.counts = {"flash_attention": 0, "ssd_scan": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+        self._orig = orig = _build.use_kernel
+
+        def counting(x, backend, name):
+            ok = orig(x, backend, name)
+            if not ok and name in self.counts:
+                self.counts[name] += 1
+            return ok
+        _build.use_kernel = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import _build
+        _build.use_kernel = self._orig
+
+
+def mesh_train(torch, np, arch, kernel, steps, mesh, args, dev,
+               ckpt_dir=None) -> dict:
+    """Phase 15, one model: ``steps`` steps of ``Trainer(mesh=None)``, then
+    of ``Trainer(mesh=mesh)`` from the same state (the same seed: the same
+    parameters and batches), full width and depth, (4, 2048) tokens. The
+    mesh trainer is returned for the compression and checkpoint checks."""
+    from repro_torch.configs import base as CB
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    cfg = CB.get_config(arch)
+    per_step = cfg.num_layers * (2 if cfg.remat else 1)
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, TrainConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                                      num_steps=steps, log_every=0,
+                                      ckpt_every=0, ckpt_dir=(
+                                          ckpt_dir if m is not None
+                                          else None), seed=args.seed),
+                     mesh=m, device=dev)
+        lm_reset_launches()
+        with PlainCalls() as plain:
+            per = []
+            for _ in range(steps):
+                before = lm_launches()[kernel]
+                tr.train_one()
+                per.append(lm_launches()[kernel] - before)
+        torch.cuda.synchronize()
+        runs[name] = {
+            "losses": [h["loss"] for h in tr.history],
+            "grad_norms": [h["grad_norm"] for h in tr.history],
+            "launches_per_step": per, "plain_calls": dict(plain.counts),
+            "step_ms": 1e3 * float(np.median(
+                [h["step_time_s"] for h in tr.history[1:]])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        # one more step, traced: is the mesh's extra time on the card?
+        t = traced(torch, tr.train_one)
+        runs[name]["trace"] = {k: t[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share")}
+        if m is None:
+            del tr
+    rels = [abs(a - b) / abs(b) for key in ("losses", "grad_norms")
+            for a, b in zip(runs["mesh"][key][:steps],
+                            runs["none"][key][:steps])]
+    rep = {**runs, "max_rel": max(rels), "exact": max(rels) == 0.0,
+           "placements": sorted({str(tuple(p.placements))
+                                 for p in tr.params.values()})}
+    for name in ("none", "mesh"):
+        r = runs[name]
+        check(all(n == per_step for n in r["launches_per_step"])
+              and r["plain_calls"][kernel] == 0,
+              f"{arch} {name} trainer: {r['launches_per_step']} {kernel} "
+              f"launches a step (derived {per_step}), "
+              f"{r['plain_calls'][kernel]} plain-version calls")
+    check(all(np.isfinite(runs["mesh"]["losses"]))
+          and rep["max_rel"] <= RTOL_MESH,
+          f"{arch} on the (1, 1) NCCL mesh: losses and grad norms within "
+          f"{RTOL_MESH} of mesh=None (largest relative gap "
+          f"{rep['max_rel']:.3e}; exactly 0: {rep['exact']})")
+    for i, (a, b, c, d) in enumerate(zip(
+            runs["mesh"]["losses"][:steps], runs["none"]["losses"],
+            runs["mesh"]["grad_norms"][:steps], runs["none"]["grad_norms"]),
+            1):
+        print(f"{arch} step {i}: loss mesh {a!r} / none {b!r}; grad norm "
+              f"mesh {c!r} / none {d!r}")
+    return rep, tr
+
+
+def mesh_psum(torch, tr) -> dict:
+    """Phase 15: ``compressed_psum`` over the NCCL group on a mesh
+    trainer's gradients, two rounds (the second with the first's
+    residuals), each leaf's mean and residual against the per-rank plain
+    computation on the card, bit for bit: ``quantize_int8`` with the
+    group's absmax, ``dequantize`` over the group size and the fused
+    residual (the pieces the CPU tests hold against the reference's)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.sharding import local
+
+    grads = {k: local(p.grad) for k, p in tr.params.items()}
+    res = C.init_residuals(grads)
+    n = dist.get_world_size()
+    worst = {"mean": 0.0, "residual": 0.0}
+    t0 = time.perf_counter()
+    for _ in range(2):
+        mean, new = C.compressed_psum(grads, res)
+        for k, g in grads.items():
+            c = g.float() + res[k]
+            q, scale = C.quantize_int8(c)     # one rank: its own absmax
+            want_mean = (C.dequantize(q, scale) / n).to(g.dtype)
+            want_res = C.fused_residual(c, q, scale)
+            worst["mean"] = max(worst["mean"], float(
+                (mean[k] - want_mean).abs().max()))
+            worst["residual"] = max(worst["residual"], float(
+                (new[k] - want_res).abs().max()))
+        res = new
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 2
+    errs = {k: C.compression_error(g) for k, g in grads.items()}
+    top = max(errs, key=errs.get)
+    rep = {"leaves": len(grads), "elements": sum(g.numel()
+                                                 for g in grads.values()),
+           "max_abs_diff": worst, "largest_compression_error": errs[top],
+           "largest_error_leaf": top, "largest_error_leaf_absmax_over_rms":
+           float(grads[top].abs().max() / grads[top].float().pow(2).mean()
+                 .sqrt().clamp_min(1e-30)),
+           "ms_per_round": ms, "world": n}
+    check(worst["mean"] == 0.0 and worst["residual"] == 0.0,
+          f"compressed_psum over the NCCL group: means and residuals of "
+          f"{len(grads)} gradient leaves bit for bit the plain per-rank "
+          f"computation ({worst})")
+    print(f"compressed_psum: {json.dumps(rep)}")
+    return rep
+
+
+def mesh_checkpoint(torch, tr, args, dev, ckpt_dir) -> dict:
+    """Phase 15: the mesh trainer's checkpoint restores into a mesh=None
+    trainer on the card and on the CPU, bit for bit."""
+    from repro_torch.distributed.sharding import full
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    tr.save()
+    want = {k: full(p.detach()).cpu() for k, p in tr.params.items()}
+    m = {k: full(t).cpu() for k, t in tr.opt_state["m"].items()}
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        fresh = Trainer(tr.cfg, TrainConfig(
+            seq_len=LM_SEQ, global_batch=LM_BATCH, num_steps=tr.step,
+            ckpt_dir=ckpt_dir, seed=args.seed + 1), device=where)
+        ok = fresh.maybe_restore()
+        same = (ok and fresh.step == tr.step
+                and all(torch.equal(p.detach().cpu(), want[k])
+                        for k, p in fresh.params.items())
+                and all(torch.equal(t.cpu(), m[k])
+                        for k, t in fresh.opt_state["m"].items())
+                and all(p.device.type == where.type
+                        for p in fresh.params.values()))
+        check(same, f"{tr.cfg.name}: the mesh trainer's step-{tr.step} "
+              f"checkpoint restores into a mesh=None trainer on "
+              f"{where.type} bit for bit (params, Adam m)")
+        out[where.type] = same
+        del fresh
+    return out
+
+
+# phase 15's model-parallel check: every family at SMOKE in float32 on a
+# (2, 2) ("data", "model") mesh of 4 gloo ranks on the CPU, one step from
+# the same seed as mesh=None on the CPU. One card holds one NCCL rank, so
+# this is where this machine's torch runs DTensor's sharding rules with
+# the model axis at 2 (heads, kv head_dim, vocab, SSD heads, experts and
+# RG-LRU width split over two ranks)
+MESH_MP = ((2, 2), ("data", "model"))
+MESH_MP_RUNS = (("llama3.2-1b", 32), ("mamba2-130m", 64), ("dbrx-132b", 32),
+                ("recurrentgemma-2b", 64), ("whisper-tiny", 32),
+                ("llama-3.2-vision-90b", 32))
+MESH_MP_HP = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=10)
+# the vision family's cross-attention gates (0 at init: the cross blocks
+# would add nothing)
+MESH_MP_GATES = {"gate_attn": 0.5, "gate_mlp": -0.3}
+# the moe family's mesh backward rounds the dispatch / combine cotangents
+# to bfloat16 (the reference's design): its gradients are held at 1e-3
+MESH_MP_RTOL_MOE_GRAD = 1e-3
+
+
+def mesh_mp_train(arch, seq, mesh) -> dict:
+    """One float32 SMOKE step of ``arch`` on the CPU, on ``mesh`` or
+    without one: the step's metrics and every parameter after it, whole."""
+    import torch
+    from repro_torch.configs import base as CB
+    from repro_torch.distributed.sharding import full, local
+    from repro_torch.train.optimizer import OptHParams
+    from repro_torch.train.trainer import Trainer, TrainConfig
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="float32")
+    tr = Trainer(cfg, TrainConfig(seq_len=seq, global_batch=4, num_steps=1,
+                                  log_every=0, ckpt_every=0, seed=0),
+                 hp=OptHParams(**MESH_MP_HP), mesh=mesh, device="cpu")
+    with torch.no_grad():
+        for k, p in tr.params.items():
+            gate = MESH_MP_GATES.get(k.rpartition(".")[2])
+            if gate is not None:
+                local(p).fill_(gate)
+    tr.train_one()
+    return {"history": tr.history[0], "moe": cfg.family == "moe",
+            "params": {k: full(p.detach()).numpy().copy()
+                       for k, p in tr.params.items()},
+            "sharded": sum(any(q.is_shard() for q in p.placements)
+                           for p in tr.params.values()) if mesh else 0}
+
+
+def mesh_mp_rank(rank, world, out_path):
+    """Phase 15, in each of the 4 gloo ranks: every family's mesh step;
+    rank 0 writes the results."""
+    import pickle
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*MESH_MP, device="cpu")
+    out = [mesh_mp_train(arch, seq, mesh) for arch, seq in MESH_MP_RUNS]
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+
+
+def mesh_model_parallel(np, tmp) -> dict:
+    """Phase 15: :func:`mesh_mp_rank` on 4 gloo ranks, each family held
+    against its mesh=None step at the train-step bars: loss, grad norm
+    and lr within rtol 1e-5 (the moe family's grad norm 1e-3, its
+    parameters only finite), every parameter within atol 5e-5 + rtol
+    1e-5."""
+    import os
+    import pickle
+    import torch
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "mesh_mp.pkl")
+    spawn(mesh_mp_rank, 4, device="cpu", args=(path,))
+    with open(path, "rb") as f:
+        meshed = pickle.load(f)
+    out = {"torch": torch.__version__, "mesh": str(MESH_MP), "runs": {}}
+    for (arch, seq), m in zip(MESH_MP_RUNS, meshed):
+        one = mesh_mp_train(arch, seq, None)
+        rel = {k: abs(m["history"][k] - one["history"][k])
+               / abs(one["history"][k]) for k in ("loss", "grad_norm", "lr")}
+        gap = max(float(np.max(np.abs(v - one["params"][k])
+                               - 1e-5 * np.abs(one["params"][k])))
+                  for k, v in m["params"].items())
+        finite = all(np.isfinite(v).all() for v in m["params"].values())
+        grad_bar = MESH_MP_RTOL_MOE_GRAD if m["moe"] else 1e-5
+        ok = (rel["loss"] <= 1e-5 and rel["lr"] <= 1e-5
+              and rel["grad_norm"] <= grad_bar and finite
+              and (m["moe"] or gap <= 5e-5) and m["sharded"] > 0)
+        out["runs"][arch] = {"rel": rel, "param_excess": gap,
+                             "sharded_params": m["sharded"]}
+        check(ok, f"{arch} SMOKE on the {MESH_MP[0]} gloo mesh (torch "
+              f"{torch.__version__}): {m['sharded']} sharded parameters; "
+              f"loss, grad norm, lr relative gaps {rel} (grad norm bar "
+              f"{grad_bar}); parameters: largest |gap| - 1e-5 |want| "
+              f"{gap:.3e} (bar 5e-5{', not held: moe' if m['moe'] else ''})")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(torch, np, args, dev, report) -> dict:
+    """Phase 15; returns, per LM kernel, what its row adds."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        LM.init_process_group(0, 1, os.path.join(d, "store"),
+                              device=dev.type)
+        try:
+            mesh = LM.make_mesh((1, 1), ("data", "model"), device=dev.type)
+            out["mesh"] = str(mesh)
+            for arch, kernel, steps in MESH_RUNS:
+                ckpt = os.path.join(d, "ckpt") if kernel == "ssd_scan" \
+                    else None
+                out[kernel], tr = mesh_train(torch, np, arch, kernel, steps,
+                                             mesh, args, dev, ckpt)
+                if kernel == "flash_attention":
+                    out["compressed_psum"] = mesh_psum(torch, tr)
+                else:
+                    out["checkpoint"] = mesh_checkpoint(torch, tr, args,
+                                                        dev, ckpt)
+                del tr
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        out["model_parallel"] = mesh_model_parallel(np, d)
+    p13 = report["lm_train"]["train"]
+    for kernel in ("flash_attention", "ssd_scan"):
+        r = out[kernel]
+        print(f"{kernel} trainer: mesh (1, 1) {r['mesh']['step_ms']:.1f} ms "
+              f"a step, peak {r['mesh']['peak_mem_gb']:.2f} GB; mesh=None "
+              f"{r['none']['step_ms']:.1f} ms, "
+              f"{r['none']['peak_mem_gb']:.2f} GB; phase 13 "
+              f"{p13[kernel]['step_ms']:.1f} ms, "
+              f"{p13[kernel]['peak_mem_gb']:.2f} GB; traced step, mesh "
+              f"{json.dumps(r['mesh']['trace'])}, mesh=None "
+              f"{json.dumps(r['none']['trace'])}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 15 (the distributed layer): {json.dumps(out)}")
+    report["mesh"] = out
+    return {k: {"mesh_train_launches_per_step":
+                out[k]["mesh"]["launches_per_step"][-1],
+                "mesh_train_launches": sum(
+                    out[k]["mesh"]["launches_per_step"]),
+                "mesh_train_step_ms": out[k]["mesh"]["step_ms"]}
+            for k in ("flash_attention", "ssd_scan")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
@@ -2551,6 +2907,11 @@ def main(argv=None) -> int:
 
     # -- 14. the remaining families --------------------------------------------
     kernels += family_phases(torch, np, args, dev, report)
+
+    # -- 15. the distributed layer ---------------------------------------------
+    per_kernel = mesh_phase(torch, np, args, dev, report)
+    for row in lm_rows:
+        row.update(per_kernel[row["name"]])
 
     if args.out:
         out = pathlib.Path(args.out)

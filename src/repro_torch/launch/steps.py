@@ -24,6 +24,7 @@ from torch.profiler import record_function
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import make_pipeline
+from repro_torch.distributed.sharding import full, is_dtensor
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as OPT
 
@@ -54,6 +55,11 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
     summed in order (``.grad`` accumulates), then divided by their number,
     and the loss and metrics are averaged over the slices.
 
+    Under a mesh (``DTensor`` parameters and batch, called inside
+    ``distributed.sharding.use_mesh``) each gradient is brought to its
+    parameter's placements before the optimizer, and the metrics come back
+    whole on every rank.
+
     Each slice's forward and the optimizer are profiler ranges
     (``train_step/forward``, ``train_step/optimizer``; the backward runs on
     autograd's own thread, so a range around it would hold none of its
@@ -71,6 +77,9 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
             loss.backward()   # .grad accumulates: g_1 + g_2 + ...
             loss_sum = loss_sum + loss.detach()
             mets.append({k: v.detach() for k, v in met.items()})
+        for p in params.values():
+            if is_dtensor(p) and p.grad.placements != p.placements:
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         if microbatches > 1:
             for p in params.values():
                 p.grad.div_(microbatches)
@@ -78,9 +87,10 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
         with record_function("train_step/optimizer"):
             _, opt_state, opt_metrics = OPT.apply_updates(params, grads,
                                                           opt_state, hp)
+        mets = [{k: full(v) for k, v in m.items()} for m in mets]
         metrics = {k: torch.stack([m[k] for m in mets]).mean()
                    for k in mets[0]}
-        return model, opt_state, {"loss": loss_sum / microbatches,
+        return model, opt_state, {"loss": full(loss_sum) / microbatches,
                                   **metrics, **opt_metrics}
 
     return train_step

@@ -21,20 +21,32 @@ their roundings. ``local_attention`` and ``cross_attention`` are not
 Pallas functions in the reference (and the hybrid's head dim 256 is
 outside the flash kernel's): they are plain torch on both devices, with
 ``_sdpa``'s roundings. Which of them a layer runs follows its ``window``
-alone. ``constrain`` has no meaning on one card without a mesh and is
-dropped; ``remat_wrap`` becomes ``torch.utils.checkpoint`` per block in
+alone. ``remat_wrap`` becomes ``torch.utils.checkpoint`` per block in
 the families' ``forward``.
+
+Under a mesh (``repro_torch.distributed``) the parameters and the batch
+are ``DTensor``s, each module's ``AXES`` names its parameters' logical
+dims (``models.model.param_axes``), and the reference's ``constrain``
+calls stand at its sites: each redistributes a ``DTensor`` activation and
+leaves a plain tensor as it is, so the one-device paths are unchanged.
+The attention kernel runs on each rank's local shard of the batch and of
+the query heads (:func:`causal_attention`), as the reference's
+``shard_map`` regions run theirs.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                               mesh_dim_of, shard_local,
+                                               unshard)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
                                      _sdpa, reference_attention)
@@ -132,6 +144,14 @@ class AttentionParams(nn.Module):
     """wq (d, H, hd), wk / wv (d, KV, hd), wo (H, hd, d); with ``qkv_bias``
     bq (H, hd), bk / bv (KV, hd)."""
 
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "kv_head_dim"),
+            "wv": ("embed", "kv_heads", "kv_head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "bq": ("heads", "head_dim"),
+            "bk": ("kv_heads", "kv_head_dim"),
+            "bv": ("kv_heads", "kv_head_dim")}
+
     def __init__(self, d_model, num_heads, num_kv_heads, head_dim,
                  qkv_bias=False, *, device=None):
         super().__init__()
@@ -154,15 +174,36 @@ class AttentionParams(nn.Module):
                 b.zero_()
 
 
-def _project_qkv(p, x, positions, theta):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+def project_heads(x, w):
+    """(B,S,D) x (D,heads,hd) -> (B,S,heads,hd), in x's dtype. Under a
+    mesh, wk and wv shard their head_dim (``kv_head_dim``), and the
+    einsum's view flattens (heads, hd), which DTensor before torch 2.13
+    refuses with the inner dim sharded: so a sharded head_dim of the
+    weight is gathered first (D x KV x hd, less than the k and v whose
+    head_dim the reference gathers at its ``kv_heads`` constraints)."""
+    return torch.einsum("bsd,dhk->bshk", x, unshard(w, 2).to(x.dtype))
+
+
+def _project_qkv(p, x, positions, theta, *, decode=False):
+    q = project_heads(x, p.wq)
+    k = project_heads(x, p.wk)
+    v = project_heads(x, p.wv)
     if hasattr(p, "bq"):
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    if decode:
+        # one-token decode: the reference keeps the heads replicated (its
+        # KV cache is seq-sharded over the model axis)
+        q = constrain(q, "batch", None, None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+    else:
+        q = constrain(q, "batch", "seq", "heads", None)
+        k = constrain(k, "batch", "seq", "kv_heads", None)
+        v = constrain(v, "batch", "seq", "kv_heads", None)
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +238,40 @@ def causal_attention(q, k, v, *, backend: str = "auto"):
     where it rounds: the scores come out of the activations' dtype
     product, and the probabilities are cast to it before P.V. In float32 the two paths agree to rounding; in bfloat16
     only this one follows the reference's rounding order."""
+    if is_dtensor(q):
+        return _per_rank_heads(lambda *a: causal_attention(
+            *a, backend=backend), q, k, v)
     if reference_route(q, backend):
         return reference_attention(q, k, v)
     return ops.flash_attention(q, k, v, backend=backend)
+
+
+def _per_rank_heads(fn, q, k, v):
+    """``fn(q, k, v)`` of ``DTensor``s run by each rank on its own batch
+    rows and query heads, as the reference's ``shard_map`` regions run
+    their kernels (and DTensor before torch 2.13 cannot run the plain
+    versions' einsums with the batch and the heads both sharded). k and v
+    come replicated over the heads' mesh axes, and the rank keeps the kv
+    heads its query heads read (GQA by index: local head h reads kv head
+    h // (H_local / KV_local) of what it is given)."""
+    H, KV = q.shape[2], k.shape[2]
+    return shard_local(
+        lambda ql, kl, vl, heads: fn(ql, *_kv_of_heads(kl, vl, heads,
+                                                       H // KV)),
+        (q, k, v), (2, None, None))
+
+
+def _kv_of_heads(k, v, heads, group: int):
+    """The kv heads that query heads ``[h0, h0 + n)`` read, ``heads = (h0,
+    n)``, out of all KV of ``k`` and ``v`` (B, S, KV, hd), ``group`` query
+    heads to a kv head."""
+    h0, n = heads
+    if n == k.shape[2] * group:
+        return k, v
+    if n % group and group % n:
+        raise ValueError(f"{n} local query heads cut kv groups of {group}")
+    lo, cnt = h0 // group, max(n // group, 1)
+    return k[:, :, lo:lo + cnt], v[:, :, lo:lo + cnt]
 
 
 def local_attention(q, k, v, window: int):
@@ -208,7 +280,11 @@ def local_attention(q, k, v, window: int):
     ``window`` positions this is the causal ``_sdpa``; above, S must be a
     multiple of ``window`` and each block of ``window`` queries attends to
     its own block and the one before (block 0 to its own alone). Plain
-    torch on both devices, under the profiler range ``attention/local``."""
+    torch on both devices, under the profiler range ``attention/local``;
+    under a mesh, per rank (:func:`_per_rank_heads`)."""
+    if is_dtensor(q):
+        return _per_rank_heads(lambda *a: local_attention(*a, window),
+                               q, k, v)
     B, S, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     with record_function("attention/local"):
@@ -237,7 +313,10 @@ def local_attention(q, k, v, window: int):
 def cross_attention(q, k, v):
     """Full (unmasked) attention to a fixed context, e.g. encoder outputs:
     q (B,S,H,hd), k and v (B,Sc,KV,hd). The reference's ``_sdpa`` without
-    a mask, with its roundings."""
+    a mask, with its roundings; under a mesh, per rank
+    (:func:`_per_rank_heads`)."""
+    if is_dtensor(q):
+        return _per_rank_heads(cross_attention, q, k, v)
     H, hd = q.shape[2], q.shape[3]
     return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), None,
                  1.0 / math.sqrt(hd))
@@ -256,6 +335,7 @@ def decode_attention(q, cache_k, cache_v, cur_len):
     v = _repeat_kv(cache_v, H)
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    s = constrain(s, "batch", None, None, "seq_shard")
     lens = cur_len.reshape(-1, 1, 1, 1)
     valid = torch.arange(S, device=q.device)[None, None, None, :] < lens
     s = torch.where(valid, s, -1e30)
@@ -278,7 +358,9 @@ def attention_apply(p, x, cfg, *, positions, window: int = 0,
         ctx = local_attention(q, k, v, window)
     else:
         ctx = causal_attention(q, k, v, backend=backend)
-    return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    ctx = constrain(ctx, "batch", "seq", "heads", None)
+    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    return constrain(out, "batch", "seq", None)
 
 
 def _onehot_cache_write(cache, new, write_at):
@@ -302,7 +384,7 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, cur_len,
     B = x.shape[0]
     pos = (cur_len.expand(B, 1) if cur_len.dim() == 0
            else cur_len[:, None])
-    q, k, v = _project_qkv(p, x, pos, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, pos, cfg.rope_theta, decode=True)
     S = cache_k.shape[1]
     write_at = torch.remainder(cur_len, window) if window and S == window \
         else cur_len
@@ -319,11 +401,13 @@ def cross_attention_apply(p, x, context):
     """x: (B,S,D) queries; context: (B,Sc,D), the keys' and values' source.
     No RoPE and no bias (the reference's ``cross_attention_init`` is
     ``attention_init`` without ``qkv_bias``)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", context, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", context, p.wv.to(x.dtype))
+    q = project_heads(x, p.wq)
+    k = project_heads(context, p.wk)
+    v = project_heads(context, p.wv)
+    q = constrain(q, "batch", "seq", "heads", None)
     ctx = cross_attention(q, k, v)
-    return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    return constrain(out, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +417,9 @@ def cross_attention_apply(p, x, context):
 
 class MLPParams(nn.Module):
     """SwiGLU: wi, wu (d, d_ff), wd (d_ff, d)."""
+
+    AXES = {"wi": ("embed", "mlp"), "wu": ("embed", "mlp"),
+            "wd": ("mlp", "embed")}
 
     def __init__(self, d_model, d_ff, *, device=None):
         super().__init__()
@@ -375,7 +462,8 @@ def gelu_tanh(x):
 def mlp_apply(p, x):
     g = x @ p.wi.to(x.dtype)
     u = x @ p.wu.to(x.dtype)
-    return (silu(g) * u) @ p.wd.to(x.dtype)
+    h = constrain(silu(g) * u, "batch", "seq", "mlp")
+    return constrain(h @ p.wd.to(x.dtype), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +483,8 @@ class EmbeddingParams(nn.Module):
     rows are initialised like the rest and take part in the unembedding,
     as in the reference."""
 
+    AXES = {"tok": ("vocab", None), "out": ("embed", "vocab")}
+
     def __init__(self, vocab_size, d_model, tie: bool, *, device=None):
         super().__init__()
         pv = padded_vocab(vocab_size)
@@ -412,24 +502,169 @@ class EmbeddingParams(nn.Module):
 
 def embed_apply(p, tokens, dtype):
     # gather, then cast: the same values as casting the table first
-    return F.embedding(tokens.long(), p.tok).to(dtype)
+    if mesh_dim_of(p.tok, 0) is not None:
+        x = _embed_vocab_parallel(p.tok, tokens)
+    else:
+        x = F.embedding(tokens.long(), p.tok)
+    return constrain(x.to(dtype), "batch", "seq", None)
 
 
 def unembed_apply(p, x):
     """Logits over the padded vocabulary."""
     if hasattr(p, "out"):
-        return x @ p.out.to(x.dtype)
-    return x @ p.tok.to(x.dtype).T
+        logits = x @ p.out.to(x.dtype)
+    else:
+        logits = x @ p.tok.to(x.dtype).T
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def cross_entropy_loss(logits, labels, vocab_size):
     """Mean NLL over tokens, in float32; the padded-vocabulary tail of the
-    logits is masked to -1e30 first (the reference's, ``layers.py:481``)."""
+    logits is masked to -1e30 first (the reference's, ``layers.py:481``).
+    With the vocab sharded over a mesh axis each rank keeps its columns
+    (:func:`_nll_vocab_parallel`)."""
+    if mesh_dim_of(logits, 2) is not None:
+        return torch.mean(_nll_vocab_parallel(logits, labels, vocab_size))
     pv = logits.shape[-1]
-    logits = logits.float()
+    logits = constrain(logits, "batch", None, None).float()
     if pv != vocab_size:
         pad_mask = torch.arange(pv, device=logits.device) < vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+# ---------------------------------------------------------------------------
+# the vocab-sharded embedding and loss under a mesh
+# ---------------------------------------------------------------------------
+#
+# DTensor has no rule for a gather along a sharded dim (the embedding
+# lookup, the loss's gold logit). Each rank instead works on its own rows
+# (columns) of the vocab and one all-reduce over the vocab's mesh axis
+# combines them, as the reference's compiled lookup and loss do: neither
+# the table nor the logits come whole to a rank.
+
+
+class _VocabEmbed(torch.autograd.Function):
+    """Lookup of ``ids`` in this rank's rows ``[v0, v0 + rows)`` of the
+    table, zero for the other ids, summed over ``group``. The backward
+    adds each token's gradient to its row, on the rank that holds it."""
+
+    @staticmethod
+    def forward(ctx, rows, ids, v0, group):
+        local = ids.long() - v0
+        hit = (local >= 0) & (local < rows.shape[0])
+        idx = torch.where(hit, local, 0)
+        out = torch.where(hit[..., None], F.embedding(idx, rows), 0.0)
+        dist.all_reduce(out, group=group)
+        ctx.save_for_backward(idx, hit)
+        ctx.rows = rows.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, hit = ctx.saved_tensors
+        grad = g.new_zeros(ctx.rows)
+        grad.index_add_(0, idx.reshape(-1), torch.where(
+            hit[..., None], g, 0.0).reshape(-1, g.shape[-1]))
+        return grad, None, None, None
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token NLL from this rank's columns ``[v0, v0 + cols)`` of the
+    logits (float32; columns at or past ``vocab_size`` masked to -1e30):
+    the row max, the sum of exponentials and the gold logit are each one
+    all-reduce over ``group``. The backward is ``softmax - onehot`` on the
+    rank's own columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0, vocab_size, group):
+        x = logits.float()
+        cols = torch.arange(v0, v0 + x.shape[-1], device=x.device)
+        x = torch.where(cols < vocab_size, x, -1e30)
+        m = x.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        total = e.sum(-1)
+        dist.all_reduce(total, group=group)
+        local = labels.long() - v0
+        hit = (local >= 0) & (local < x.shape[-1])
+        idx = torch.where(hit, local, 0)[..., None]
+        gold = torch.where(hit, torch.gather(x, -1, idx)[..., 0], 0.0)
+        dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(e, total, idx, hit)
+        ctx.dtype = logits.dtype
+        return m + torch.log(total) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, hit = ctx.saved_tensors
+        grad = e * (g / total)[..., None]
+        grad.scatter_add_(-1, idx, -torch.where(hit, g, 0.0)[..., None])
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def _vocab_layout(x, dim: int, rows_of):
+    """The mesh dim ``vd`` that shards ``x``'s vocab ``dim``, and the
+    placements that keep it there and shard nothing else of ``x`` but the
+    batch rows of the ``DTensor`` ``rows_of`` (None: no batch dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    vd = mesh_dim_of(x, dim)
+    pl = []
+    for md in range(x.device_mesh.ndim):
+        if md == vd:
+            pl.append(Shard(dim))
+        elif rows_of is not None and rows_of.placements[md].is_shard(0):
+            pl.append(Shard(0))
+        else:
+            pl.append(Replicate())
+    return vd, tuple(pl)
+
+
+def _rows(t, vd):
+    """The batch-first ``DTensor`` ``t`` as this rank's local rows, whole
+    over mesh dim ``vd``, and the placements of a batch-first result with
+    those rows."""
+    from torch.distributed.tensor import Replicate
+    t = unshard(t, 1)
+    if not t.placements[vd].is_replicate():
+        t = t.redistribute(t.device_mesh, tuple(
+            Replicate() if md == vd else p
+            for md, p in enumerate(t.placements)))
+    return t.to_local(), tuple(t.placements)
+
+
+def _embed_vocab_parallel(table, tokens):
+    """The lookup of :func:`embed_apply` with the table's rows sharded
+    over a mesh axis: masked local lookups, one all-reduce."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    vd, pl = _vocab_layout(table, 0, None)
+    if tuple(table.placements) != pl:
+        table = table.redistribute(mesh, pl)
+    ids, out_pl = _rows(tokens, vd)
+    # each rank's rows take the gradients of its own batch rows: summed
+    # over the mesh dims that shard the batch
+    grad_pl = tuple(p if md == vd else (
+        Partial() if out_pl[md].is_shard() else Replicate())
+        for md, p in enumerate(pl))
+    rows = table.to_local(grad_placements=grad_pl)
+    v0 = mesh.get_local_rank(vd) * rows.shape[0]
+    out = _VocabEmbed.apply(rows, ids, v0, mesh.get_group(vd))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def _nll_vocab_parallel(logits, labels, vocab_size):
+    """Per-token NLL of :func:`cross_entropy_loss` with the logits' vocab
+    sharded over a mesh axis, laid out as ``labels``."""
+    from torch.distributed.tensor import DTensor
+    mesh = logits.device_mesh
+    vd, pl = _vocab_layout(logits, 2, labels)
+    if tuple(logits.placements) != pl:
+        logits = logits.redistribute(mesh, pl)
+    lab, out_pl = _rows(labels, vd)
+    local = logits.to_local(grad_placements=pl)
+    v0 = mesh.get_local_rank(vd) * local.shape[-1]
+    nll = _VocabNLL.apply(local, lab, v0, vocab_size, mesh.get_group(vd))
+    return DTensor.from_local(nll, mesh, out_pl, run_check=False)

@@ -59,6 +59,24 @@ def build(cfg: ModelConfig, *, device="cuda") -> nn.Module:
     return cls(cfg, device=resolve_device(device))
 
 
+def param_axes(model: nn.Module) -> Dict[str, tuple]:
+    """Each parameter's logical axes by name: the reference's axes tree
+    (``init``'s second result) with the stacked ``"layers"`` axis dropped,
+    as the port keeps one tensor per layer. Every parameter module names
+    its own in its ``AXES``; ``distributed.sharding.validate_axes`` holds
+    the result against ``model``. The modules carry what the config
+    decided (e.g. the MoE partition mode), so no config is needed."""
+    out = {}
+    for mname, module in model.named_modules():
+        for pname, _ in module.named_parameters(recurse=False):
+            axes = getattr(module, "AXES", {})
+            if pname not in axes:
+                raise KeyError(f"{type(module).__name__} names no axes for "
+                               f"its parameter {pname!r}")
+            out[f"{mname}.{pname}" if mname else pname] = axes[pname]
+    return out
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
     """Random float32 parameters with the reference's shapes and scales,
     drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``

@@ -1,18 +1,22 @@
 """Mixture-of-Experts FFN with capacity-based top-k routing (GShard style),
 ported from ``repro.models.moe``.
 
-One device: the groups are the B sequences of a batch, and every expert
-lives here. The reference's one-device dispatch and combine
-(``dispatch_local`` / ``combine_local``) are a scatter-add into
-``(G, E, C, D)`` slots and a gather back; the expert FFN is three batched
-products over the expert axis. None of it is a Pallas function in the
-reference, so it is plain torch on both devices.
+The groups are the B sequences of a batch. The reference's one-device
+dispatch and combine (``dispatch_local`` / ``combine_local``) are a
+scatter-add into ``(G, E, C, D)`` slots and a gather back; the expert FFN
+is three batched products over the expert axis. None of it is a Pallas
+function in the reference, so it is plain torch on both devices.
 
-Not ported: the reference's ``custom_vjp`` dispatch / combine pair, which
-exists only under a mesh (a batch-sharded ``shard_map`` with an explicit
-reshard to expert parallelism) and waits for the distributed port
-(``ROADMAP.md`` B6). ``partition_mode`` is kept, for the parameter layout
-that port will shard.
+Under a mesh (the parameters and activations ``DTensor``s) dispatch and
+combine run on each rank's batch shard (over ``pod`` x ``data``, experts
+whole), as the reference's batch-sharded ``shard_map`` pair does, and they
+are a pair of ``autograd.Function``s: each one's backward is the other
+applied to the cotangent cast to bfloat16 (the reference's
+``dispatch_bwd`` / ``combine_bwd``), so in float32 the gradient through
+them is rounded to bfloat16 there. The ``constrain`` calls at the
+reference's sites then reshard the slots to expert (or ``mlp``)
+parallelism for the FFN. ``partition_mode`` picks the parameters' axes
+(``MoEParams.AXES``) as the reference's ``moe_init`` does.
 
 Routing follows the reference term for term: the router logits in the
 activations' dtype, then float32; softmax gates; the top k (the lower
@@ -26,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                               shard_local)
 from repro_torch.models import layers as L
 
 # Production mesh model-axis size (both assigned meshes use 16).
@@ -43,6 +49,11 @@ class MoEParams(nn.Module):
 
     def __init__(self, d_model, d_ff, num_experts, *, device=None):
         super().__init__()
+        mode = partition_mode(num_experts)
+        e_ax = "expert" if mode == "expert" else "expert_ffn"
+        f_ax = "mlp_ep" if mode == "expert" else "mlp"
+        self.AXES = {"router": ("embed", None), "wi": (e_ax, "embed", f_ax),
+                     "wu": (e_ax, "embed", f_ax), "wd": (e_ax, f_ax, "embed")}
         self.router = L.empty((d_model, num_experts), device)
         self.wi = L.empty((num_experts, d_model, d_ff), device)
         self.wu = L.empty((num_experts, d_model, d_ff), device)
@@ -98,30 +109,98 @@ def route(p, x, cfg):
     return aux, flat_e, pos_in_e, keep, w_flat
 
 
+def dispatch_local(src, flat_e, pos, E: int, C: int):
+    """A scatter-add of src (G, S*k, D) into (G, E, C, D) slots; slots are
+    unique per kept choice, so only the dropped choices' zeros collide
+    (exact in bfloat16)."""
+    G = src.shape[0]
+    g_idx = torch.arange(G, device=src.device)[:, None]
+    out = torch.zeros((G, E, C, src.shape[-1]), dtype=src.dtype,
+                      device=src.device)
+    return out.index_put_((g_idx, flat_e, pos), src, accumulate=True)
+
+
+def combine_local(eo, flat_e, pos):
+    """Each choice's slot of eo (G, E, C, D) back: (G, S*k, D)."""
+    g_idx = torch.arange(eo.shape[0], device=eo.device)[:, None]
+    return eo[g_idx, flat_e, pos]
+
+
+def _dispatch_mesh(src, flat_e, pos, E, C):
+    return shard_local(lambda s, e, q, heads: dispatch_local(s, e, q, E, C),
+                       (src, flat_e, pos), (None, None, None))
+
+
+def _combine_mesh(eo, flat_e, pos):
+    return shard_local(lambda o, e, q, heads: combine_local(o, e, q),
+                       (eo, flat_e, pos), (None, None, None))
+
+
+class Dispatch(torch.autograd.Function):
+    """Dispatch on each batch shard; its backward is the combine of the
+    cotangent cast to bfloat16 (the reference's ``dispatch_bwd``: the
+    resharded cotangent is half the bytes)."""
+
+    @staticmethod
+    def forward(ctx, src, flat_e, pos, E, C):
+        ctx.save_for_backward(flat_e, pos)
+        return _dispatch_mesh(src, flat_e, pos, E, C)
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat_e, pos = ctx.saved_tensors
+        return (_combine_mesh(ct.to(torch.bfloat16), flat_e, pos),
+                None, None, None, None)
+
+
+class Combine(torch.autograd.Function):
+    """Combine on each batch shard; its backward is the dispatch of the
+    cotangent cast to bfloat16 (the reference's ``combine_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, eo, flat_e, pos):
+        ctx.save_for_backward(flat_e, pos)
+        ctx.E, ctx.C = eo.shape[1], eo.shape[2]
+        return _combine_mesh(eo, flat_e, pos)
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat_e, pos = ctx.saved_tensors
+        return (_dispatch_mesh(ct.to(torch.bfloat16), flat_e, pos, ctx.E,
+                               ctx.C), None, None)
+
+
 def moe_apply(p, x, cfg):
     """x: (B, S, D). Returns (out, aux) where aux carries the load-balance
     and router-z losses (float32 scalars)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = capacity(cfg, S)
+    e_ax = "expert" if partition_mode(E) == "expert" else None
     aux, flat_e, pos_in_e, keep, w_flat = route(p, x, cfg)
-    g_idx = torch.arange(B, device=x.device)[:, None]
+    mesh = is_dtensor(x)
 
-    # --- dispatch: a scatter-add into (G, E, C, D); slots are unique per
-    # kept choice, so only the dropped choices' zeros collide (exact in
-    # bfloat16)
+    # --- dispatch into (G, E, C, D): batch-parallel, experts whole, then
+    # resharded to expert parallelism for the FFN
     src = x.repeat_interleave(k, dim=1) * keep[..., None].to(x.dtype)
-    dispatched = torch.zeros((B, E, C, D), dtype=x.dtype, device=x.device)
-    dispatched.index_put_((g_idx, flat_e, pos_in_e), src, accumulate=True)
+    src = constrain(src, "batch", None, None)
+    dispatched = (Dispatch.apply(src, flat_e, pos_in_e, E, C) if mesh
+                  else dispatch_local(src, flat_e, pos_in_e, E, C))
+    dispatched = constrain(dispatched.to(x.dtype), "batch", e_ax, None, None)
 
     # --- expert FFN
     gi = torch.einsum("gecd,edf->gecf", dispatched, p.wi.to(x.dtype))
     up = torch.einsum("gecd,edf->gecf", dispatched, p.wu.to(x.dtype))
     h = L.silu(gi) * up
+    h = constrain(h, "batch", e_ax, None, "mlp" if e_ax is None else None)
     eo = torch.einsum("gecf,efd->gecd", h, p.wd.to(x.dtype))
+    eo = constrain(eo, "batch", e_ax, None, None)
 
     # --- combine: gather each choice's slot, weight it, and sum the k
     # choices of a token by a reshape to (G, S, k, D)
-    gathered = eo[g_idx, flat_e, pos_in_e]                # (G, S*k, D)
+    eo = eo.to(x.dtype)
+    gathered = (Combine.apply(eo, flat_e, pos_in_e) if mesh
+                else combine_local(eo, flat_e, pos_in_e))   # (G, S*k, D)
     gathered = gathered * w_flat[..., None].to(x.dtype)
-    return gathered.reshape(B, S, k, D).sum(dim=2), aux
+    out = gathered.reshape(B, S, k, D).sum(dim=2)
+    return constrain(out, "batch", "seq", None), aux

@@ -35,6 +35,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import _causal_conv
 
@@ -52,6 +53,12 @@ CACHE_BATCH_DIMS = {"k": 1, "v": 1, "conv": 1, "rec": 1}
 class RGLRUBlock(nn.Module):
     """w_x, w_y (d, W); the causal conv conv_w (4, W), conv_b (W,); the
     gates' w_r, b_r, w_i, b_i (W,); lam (W,); w_out (W, d); ln (d,)."""
+
+    AXES = {"w_x": ("embed", "rglru_width"), "w_y": ("embed", "rglru_width"),
+            "conv_w": ("conv_width", "rglru_width"),
+            **{n: ("rglru_width",)
+               for n in ("conv_b", "w_r", "b_r", "w_i", "b_i", "lam")},
+            "w_out": ("rglru_width", "embed"), "ln": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -78,6 +85,8 @@ class RGLRUBlock(nn.Module):
 class MLPSub(nn.Module):
     """mlp and its input norm ln."""
 
+    AXES = {"ln": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.mlp = L.MLPParams(cfg.d_model, cfg.d_ff, device=device)
@@ -90,6 +99,8 @@ class MLPSub(nn.Module):
 
 class AttnSub(nn.Module):
     """attn (local attention) and its input norm ln."""
+
+    AXES = {"ln": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -148,6 +159,8 @@ class HybridLM(nn.Module):
     """embed, groups[num_layers // 3], extra[num_layers % 3] (when 2),
     final_norm: the reference's param tree."""
 
+    AXES = {"final_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.embed = L.EmbeddingParams(cfg.vocab_size, cfg.d_model,
@@ -197,11 +210,14 @@ def _rglru_out(p, h_in, cfg):
     dtype = h_in.dtype
     xb = h_in @ p.w_x.to(dtype)
     yb = h_in @ p.w_y.to(dtype)
+    xb = constrain(xb, "batch", "seq", "rglru_width")
     xb = _causal_conv(xb, p.conv_w.to(dtype), p.conv_b.to(dtype))
     a, gi = _rglru_gates(p, xb)
     with record_function("rglru/scan"):
         h = _rglru_scan(a, gi).to(dtype)
-    return (h * L.gelu_tanh(yb)) @ p.w_out.to(dtype)
+    h = constrain(h, "batch", "seq", "rglru_width")
+    out = (h * L.gelu_tanh(yb)) @ p.w_out.to(dtype)
+    return constrain(out, "batch", "seq", None)
 
 
 def _rglru_out_decode(p, h_in, cfg, conv_state, rec_state):

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (WHOLE, constrain, is_dtensor,
+                                               shard_local)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked  # noqa: F401
@@ -47,6 +49,14 @@ class SSMBlock(nn.Module):
     (d, N), w_dt (d, H) and its bias b_dt (H,), the depthwise conv conv_w
     (W, di + 2N) and conv_b, A_log and D (H,), the gated norm (di,), w_out
     (di, d) and the input norm ln (d,)."""
+
+    AXES = {"w_x": ("embed", "ssm_inner"), "w_z": ("embed", "ssm_inner"),
+            "w_B": ("embed", "ssm_state"), "w_C": ("embed", "ssm_state"),
+            "w_dt": ("embed", "ssm_heads"), "b_dt": ("ssm_heads",),
+            "conv_w": ("conv_width", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "norm": ("ssm_inner",), "w_out": ("ssm_inner", "embed"),
+            "ln": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -86,6 +96,8 @@ class SSMBlock(nn.Module):
 class MambaLM(nn.Module):
     """embed, blocks[num_layers], final_norm: the reference's param tree."""
 
+    AXES = {"final_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.embed = L.EmbeddingParams(cfg.vocab_size, cfg.d_model,
@@ -103,7 +115,12 @@ class MambaLM(nn.Module):
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x: (B,S,C); w: (W,C). Taps summed in order
-    in x's dtype, as the reference sums them."""
+    in x's dtype, as the reference sums them. Under a mesh each rank
+    convolves its own batch rows, all channels (the taps run along the
+    sequence, which no rule shards)."""
+    if is_dtensor(x):
+        return shard_local(lambda xl, wl, bl, heads: _causal_conv(xl, wl, bl),
+                           (x, w, b), (None, WHOLE, WHOLE))
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(W))
@@ -131,6 +148,7 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
                                    p.conv_b.to(x.dtype)))
     di, n = cfg.d_inner, cfg.ssm_state
     xin, Bc, Cc = conv_out.split([di, n, n], dim=-1)
+    xin = constrain(xin, "batch", "seq", "ssm_inner")
 
     H, P_ = cfg.ssm_heads, cfg.ssm_head_dim
     B, S, _ = x.shape
@@ -138,16 +156,26 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
     A = -torch.exp(p.A_log)                                 # (H,)
     Adt = (dt * A).float()                                  # (B,S,H), < 0
     Xdt = Xh * dt[..., None].to(Xh.dtype)
-    chunk = min(cfg.ssm_chunk, S)
-    if L.reference_route(Xdt, backend):
-        Y = ssd_chunked(Xdt, Adt, Bc, Cc, chunk)[0]
-    else:
-        Y = ops.ssd_scan(Xdt, Adt, Bc, Cc, chunk=chunk, backend=backend)
+    Y = ssd_y(Xdt, Adt, Bc, Cc, min(cfg.ssm_chunk, S), backend)
     Y = Y + Xh * p.D.to(Xh.dtype)[None, None, :, None]
     y = Y.reshape(B, S, di)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     out = y @ p.w_out.to(x.dtype)
-    return x + out.to(x.dtype)
+    return x + constrain(out, "batch", "seq", None).to(x.dtype)
+
+
+def ssd_y(X, A, Bc, Cc, chunk: int, backend: str):
+    """The chunked SSD scan's Y: the kernel's wrapper
+    (``ops.ssd_scan``), or on the CPU with ``backend="auto"`` the
+    reference's :func:`ssd_chunked`. Under a mesh each rank scans its own
+    batch rows and SSD heads (independent per head), B and C whole."""
+    if is_dtensor(X):
+        return shard_local(
+            lambda x, a, b, c, heads: ssd_y(x, a, b, c, chunk, backend),
+            (X, A, Bc, Cc), (2, 2, None, None))
+    if L.reference_route(X, backend):
+        return ssd_chunked(X, A, Bc, Cc, chunk)[0]
+    return ops.ssd_scan(X, A, Bc, Cc, chunk=chunk, backend=backend)
 
 
 def _ssm_block_decode(p, x, cfg, conv_state, ssm_state):

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 
@@ -36,6 +37,8 @@ CACHE_BATCH_DIMS = {"k": 1, "v": 1, "context": 0}
 
 
 class Block(nn.Module):
+    AXES = {"ln1": ("embed",), "ln2": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.attn = L.AttentionParams(cfg.d_model, cfg.num_heads,
@@ -58,6 +61,9 @@ class Block(nn.Module):
 class CrossBlock(nn.Module):
     """The vlm's image layer: xattn (no bias), mlp, ln1, ln2 and the two
     tanh gates gate_attn, gate_mlp (scalars, 0 at init)."""
+
+    AXES = {"ln1": ("embed",), "ln2": ("embed",), "gate_attn": (),
+            "gate_mlp": ()}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -83,6 +89,8 @@ class TransformerLM(nn.Module):
     """embed, blocks[num_layers], final_norm and, for the vlm family,
     cross_blocks[num_layers // cross_attn_every]: the reference's param
     tree."""
+
+    AXES = {"final_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -121,13 +129,21 @@ def _ffn(p, h, cfg):
 
 
 def _block_apply(p, x, cfg, positions, backend):
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    x, h = L.add_norm(x, L.attention_apply(p.attn, h, cfg, positions=positions,
-                                          window=cfg.attn_window,
-                                          backend=backend), p.ln2,
-                     cfg.norm_eps)
-    out, aux = _ffn(p.ffn, h, cfg)
-    return x + out, aux
+    sp = cfg.seq_parallel
+
+    def to_sp(t):    # residual-stream layout (seq sharded over model)
+        return constrain(t, "batch", "seq_shard", None) if sp else t
+
+    def to_full(t):  # attention/MLP layout (seq replicated, TP inside)
+        return constrain(t, "batch", "seq", None) if sp else t
+
+    x = to_sp(x)
+    h = to_full(L.rms_norm(x, p.ln1, cfg.norm_eps))
+    x, h = L.add_norm(x, to_sp(L.attention_apply(
+        p.attn, h, cfg, positions=positions, window=cfg.attn_window,
+        backend=backend)), p.ln2, cfg.norm_eps)
+    out, aux = _ffn(p.ffn, to_full(h), cfg)
+    return x + to_sp(out), aux
 
 
 def _cross_block_apply(p, x, cfg, context):

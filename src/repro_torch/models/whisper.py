@@ -32,6 +32,8 @@ CACHE_BATCH_DIMS = {"k": 1, "v": 1, "enc_out": 0}
 class EncoderBlock(nn.Module):
     """attn (no bias), mlp, ln1, ln2."""
 
+    AXES = {"ln1": ("embed",), "ln2": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.attn = L.AttentionParams(cfg.d_model, cfg.num_heads,
@@ -51,6 +53,8 @@ class EncoderBlock(nn.Module):
 class DecoderBlock(nn.Module):
     """attn (causal self-attention), xattn (to the encoder's output), mlp,
     ln1, ln2, ln3."""
+
+    AXES = {"ln1": ("embed",), "ln2": ("embed",), "ln3": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -76,6 +80,8 @@ class WhisperLM(nn.Module):
     """embed, encoder[encoder_layers], enc_norm, decoder[num_layers],
     final_norm: the reference's param tree."""
 
+    AXES = {"enc_norm": ("embed",), "final_norm": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.embed = L.EmbeddingParams(cfg.vocab_size, cfg.d_model,
@@ -97,9 +103,9 @@ class WhisperLM(nn.Module):
 
 def _enc_block_apply(p, x, cfg):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p.attn.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", h, p.attn.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", h, p.attn.wv.to(x.dtype))
+    q = L.project_heads(h, p.attn.wq)
+    k = L.project_heads(h, p.attn.wk)
+    v = L.project_heads(h, p.attn.wv)
     ctx = L.cross_attention(q, k, v)  # bidirectional (unmasked)
     x, h = L.add_norm(x, torch.einsum("bshk,hkd->bsd", ctx,
                                      p.attn.wo.to(x.dtype)), p.ln2,

@@ -7,9 +7,10 @@ Real multi-pod failure modes and their handling here:
     continues — the loop a production launcher (GKE/Borg restart policy)
     performs across real job restarts.
   - *Elastic scaling*: the rebuild callback may hand back a trainer on a
-    DIFFERENT device (the reference: a different mesh; the port has no
-    mesh yet). Checkpoints are host numpy, so they restore onto any device
-    (`checkpoint.restore(..., device=...)`).
+    DIFFERENT mesh or device (e.g. 4 ranks -> 2 after losing a host).
+    Checkpoints are host numpy, so they restore onto any mesh or device
+    (`checkpoint.restore(..., mesh=..., placements=...)`, or the placements
+    of the new trainer's own parameters).
   - *Stragglers*: `trainer.monitor` flags slow steps; the recovery loop
     surfaces the flags so an external scheduler could evict the slow host.
 

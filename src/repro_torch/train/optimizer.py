@@ -22,6 +22,12 @@ module per layer, so :func:`decays` counts that axis back in.
 Unlike the reference, :func:`apply_updates` updates the parameter and
 moment tensors in place (the trainer's 1.2B-parameter state would
 otherwise be held twice on the card) and returns the same dicts.
+
+Under a mesh the parameters, gradients and moments are ``DTensor``s of the
+same placements (``distributed.sharding``): :func:`global_norm` sums each
+rank's shards once per element (a replicated shard divided by its
+replica count) in one all-reduce, and the update runs on the local
+shards, element by element as on one device.
 """
 from __future__ import annotations
 
@@ -30,7 +36,9 @@ import math
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import is_dtensor, local, replicas
 from repro_torch.models.model import stacked
 
 
@@ -63,10 +71,12 @@ def init_state(params: Dict[str, torch.Tensor], hp: OptHParams) -> dict:
     """Zero moments in ``hp.state_dtype`` beside each parameter, step 0."""
     dt = getattr(torch, hp.state_dtype)
     device = next(iter(params.values())).device
-    return {"m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for k, p in params.items()},
+
+    def zeros(p):  # a DTensor's moments take its placements
+        return torch.zeros_like(p.detach(), dtype=dt,
+                                memory_format=torch.contiguous_format)
+    return {"m": {k: zeros(p) for k, p in params.items()},
+            "v": {k: zeros(p) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -79,8 +89,14 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+    """The L2 norm over every tensor. ``DTensor``s (on a mesh over the
+    whole process group): each rank sums its shards' squares, a shard held
+    by r ranks divided by r, and one all-reduce adds the ranks' sums."""
+    sq = sum(torch.sum(torch.square(local(g).float())) / replicas(g)
+             for g in tree.values())
+    if any(is_dtensor(g) for g in tree.values()):
+        dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
@@ -100,13 +116,15 @@ def apply_updates(params: Dict[str, torch.Tensor],
                                        device=step.device), step32)
     bc2 = 1.0 - torch.pow(torch.tensor(hp.b2, dtype=torch.float32,
                                        device=step.device), step32)
-    for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
+    for name, p_full in params.items():
+        # a DTensor's shards update on their own rank, element by element
+        p, m, v = local(p_full), local(state["m"][name]), \
+            local(state["v"][name])
+        g = local(grads[name]).float() * scale
         m32 = hp.b1 * m.float() + (1 - hp.b1) * g
         v32 = hp.b2 * v.float() + (1 - hp.b2) * torch.square(g)
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + hp.eps)
-        if decays(name, p):  # decoupled weight decay, the reference's rule
+        if decays(name, p_full):  # decoupled decay, the reference's rule
             delta = delta + hp.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
         m.copy_(m32)

@@ -2,15 +2,25 @@
 tolerance hooks and straggler monitoring, ported from
 ``repro.train.trainer``.
 
-One device, no mesh (the reference's ``mesh`` argument waits for the
-distributed port, ``ROADMAP.md`` B6). The model's float32 parameters are
-drawn from a ``torch.Generator`` seeded with ``tc.seed`` on ``device``
-(``models.model.init``; not ``jax.random``'s numbers), made trainable, and
-updated in place with the optimizer state. The device defaults to
-``cuda``: there the blocks run the flash-attention / SSD-scan kernels and
-their gradients come through the kernels' ``autograd.Function``s; asking
-for it without CUDA raises. Batches come from the data pipeline as numpy
-and are moved to the device per step.
+The model's float32 parameters are drawn from a ``torch.Generator``
+seeded with ``tc.seed`` on ``device`` (``models.model.init``; not
+``jax.random``'s numbers), made trainable, and updated in place with the
+optimizer state. The device defaults to ``cuda``: there the blocks run the
+flash-attention / SSD-scan kernels and their gradients come through the
+kernels' ``autograd.Function``s; asking for it without CUDA raises.
+Batches come from the data pipeline as numpy and are moved to the device
+per step.
+
+``mesh=None`` trains on one device. With a ``DeviceMesh``
+(``launch.mesh.make_mesh``; every rank of the process group builds its
+own ``Trainer``) the parameters and both Adam moments become ``DTensor``s
+placed by the logical-axis rules (``distributed.sharding.
+tree_param_shardings`` of ``models.model.param_axes``, the reference's
+``trainer.py:114-135``): every rank draws the whole model from the same
+seed and keeps its shards. Each rank builds the reference's *global*
+batch from the same pipeline and keeps its rows of it (``ACT_RULES
+["batch"]``), so the token stream is the reference's. The step runs
+inside ``sharding.use_mesh``.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import pipeline as data_pipeline
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as CKPT
@@ -67,9 +78,10 @@ class StragglerMonitor:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
-                 hp: Optional[OPT.OptHParams] = None,
+                 hp: Optional[OPT.OptHParams] = None, mesh=None,
                  data: Optional[Iterator] = None, *, device="cuda"):
         self.cfg, self.tc = cfg, tc
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.hp = hp or OPT.OptHParams(warmup_steps=10,
                                        decay_steps=max(tc.num_steps, 2))
@@ -81,6 +93,12 @@ class Trainer:
         self.history: list = []
 
         self.model = M.init(cfg, seed=tc.seed, device=self.device)
+        self.axes = M.param_axes(self.model)
+        if mesh is not None:
+            SH.validate_axes(self.params, self.axes)
+            self.shardings = SH.tree_param_shardings(
+                self.axes, mesh, {k: p.shape for k, p in self.params.items()})
+            SH.distribute_params(self.model, mesh, self.shardings)
         self.model.requires_grad_(True)
         self.opt_state = OPT.init_state(self.params, self.hp)
         self._step_fn = ST.make_train_step(cfg, self.hp, tc.microbatches)
@@ -92,15 +110,25 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict[str, np.ndarray]):
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import distribute_tensor
+        axes = {k: ("batch",) + (None,) * (v.dim() - 1)
+                for k, v in out.items()}
+        pl = SH.tree_act_shardings(axes, self.mesh,
+                                   {k: v.shape for k, v in out.items()})
+        return {k: distribute_tensor(v, self.mesh, pl[k], src_data_rank=None)
+                for k, v in out.items()}
 
     def train_one(self, batch=None) -> Dict[str, float]:
         if batch is None:
             batch = next(self.data)
         t0 = time.time()
-        _, self.opt_state, metrics = self._step_fn(
-            self.model, self.opt_state, self._device_batch(batch))
+        with SH.use_mesh(self.mesh):
+            _, self.opt_state, metrics = self._step_fn(
+                self.model, self.opt_state, self._device_batch(batch))
         metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
         self.step += 1
         dt = time.time() - t0
@@ -124,8 +152,14 @@ class Trainer:
         """Resume from the newest checkpoint if one exists."""
         if not self.tc.ckpt_dir:
             return False
+        placements = None
+        if self.mesh is not None:   # the elastic re-mesh: this trainer's
+            placements = {f"{part}/{k}": pl        # own placements
+                          for k, pl in self.shardings.items()
+                          for part in ("params", "opt/m", "opt/v")}
         step, tree = CKPT.restore_latest(self.tc.ckpt_dir, self._tree(),
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh,
+                                         placements=placements)
         if step is None:
             return False
         with torch.no_grad():

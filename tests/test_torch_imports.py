@@ -20,7 +20,8 @@ def _modules():
 
 def test_module_list_covers_every_package():
     """The modules the import checks walk include every package of the
-    port, the training packages and every model family among them."""
+    port, the training packages, every model family and the distributed
+    layer among them."""
     mods = _modules()
     for m in ("repro_torch.data.pipeline", "repro_torch.train.optimizer",
               "repro_torch.train.checkpoint", "repro_torch.train.trainer",
@@ -28,7 +29,10 @@ def test_module_list_covers_every_package():
               "repro_torch.launch.steps", "repro_torch.calibrate.controller",
               "repro_torch.serve.engine", "repro_torch.kernels.ssd_scan",
               "repro_torch.models.moe", "repro_torch.models.whisper",
-              "repro_torch.models.rglru", "repro_torch.models.transformer"):
+              "repro_torch.models.rglru", "repro_torch.models.transformer",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.compression",
+              "repro_torch.distributed.pipeline", "repro_torch.launch.mesh"):
         assert m in mods, m
 
 
