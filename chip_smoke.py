@@ -175,6 +175,28 @@ The distributed layer, after phase 14:
      its mesh=None step at the train-step bars: this machine's torch runs
      DTensor's sharding rules with the model axis at 2.
 
+The dry-run, after phase 15, in a subprocess of its own (its fake
+process group cannot share a process with phase 15's NCCL group):
+
+ 16. (a) ``launch.steps.build_cell`` for llama3.2-1b and mamba2-130m,
+     prefill and train on (4, 2048) tokens, traced under ``FakeTensorMode``
+     on a fake (1, 1) ``cuda`` mesh (``launch.mesh.make_fake_mesh``) with
+     the aten-op counter (``analysis.opcount``); (b) the same cells built
+     for real (random weights from ``--seed``) and run on the card on that
+     mesh under the same counter: the real FLOPs and HBM bytes equal the
+     trace's, the traced kernel nodes equal the wrappers' launch counts
+     (16 / 32 flash, 24 / 48 SSD: one per call, though a bf16 SSD call is
+     three launches) and the derived counts, and the roofline lower bound
+     (``analysis.roofline``, H100 constants) is at most the step's time
+     measured in phases 6, 7 and 13 and on this mesh; the predicted memory
+     (arguments and the counter's peak of temporaries) beside
+     ``torch.cuda.max_memory_allocated``; (c) llama3.2-1b ``train_4k``
+     and mamba2-130m ``prefill_32k`` through ``launch.dryrun.run_cell``
+     on a fake (16, 16) ``cuda`` mesh: each ``ok`` with FLOPs and HBM
+     bytes above 0, and collective bytes above 0 for the train cell. The
+     kernels' line adds the traced nodes and the real launches per step
+     (``dryrun_*`` keys).
+
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
 result; the line before it lists every kernel with its launches, error,
@@ -1132,30 +1154,6 @@ def median_ms(torch, fn, calls=5):
     return sorted(times)[calls // 2]
 
 
-def flash_work(q, k):
-    """(bytes, operations) of causal attention: q, k, v read once and the
-    output written once; 4 D operations for each (query, key <= query)
-    pair of a head (q.k and p.v)."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
-    return nbytes, 4 * D * B * H * S * (S + 1) // 2
-
-
-def ssd_work(X, Bc, chunk):
-    """(bytes, operations) of the chunked SSD scan: X, Adt (f32), Bc, Cc
-    read once and Y written once; per (b, h, chunk) C.B^T (2 N) and
-    scores.X (2 P) for each (position, position j <= it) pair of the chunk,
-    as ``flash_work`` counts only the causal pairs, plus C.S^T and the
-    state update (2 Q N P each)."""
-    B, S, H, P = X.shape
-    N = Bc.shape[-1]
-    nbytes = (2 * B * S * H * P + 2 * B * S * N) * X.element_size() \
-        + B * S * H * 4
-    per_chunk = chunk * (chunk + 1) * (N + P) + 4 * chunk * N * P
-    return nbytes, B * H * (S // chunk) * per_chunk
-
-
 def lm_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -1461,7 +1459,7 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
     return [
         kernel_row(torch, "flash_attention", "flash_attention",
                    "src/repro/kernels/flash_attention.py:74",
-                   *flash_runs(fa_mod, F, q, k, v), flash_work(q, k),
+                   *flash_runs(fa_mod, F, q, k, v), fa_mod.work(q, k),
                    q.dtype, counts["flash_attention"],
                    errs["flash_attention"], tag),
         kernel_row(torch, "ssd_scan", "ssd_scan",
@@ -1470,7 +1468,7 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
                                             backend="cuda"),
                    lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
                                             backend="torch"),
-                   None, ssd_work(X, Bc, chunk), X.dtype,
+                   None, ssd_mod.work(X, Bc, chunk), X.dtype,
                    counts["ssd_scan"], errs["ssd_scan"], tag)]
 
 
@@ -2076,7 +2074,7 @@ def family_flash_row(torch, arch, q, k, v, launches) -> dict:
         del got, want
     row = kernel_row(torch, f"flash_attention/{arch}", "flash_attention",
                      "src/repro/kernels/flash_attention.py:74",
-                     *flash_runs(fa_mod, F, q, k, v), flash_work(q, k),
+                     *flash_runs(fa_mod, F, q, k, v), fa_mod.work(q, k),
                      q.dtype, launches, errs[torch.bfloat16],
                      f" {shape}")
     row["f32_max_abs_err"] = errs[torch.float32]
@@ -2438,6 +2436,180 @@ def mesh_phase(torch, np, args, dev, report) -> dict:
             for k in ("flash_attention", "ssd_scan")}
 
 
+# ---------------------------------------------------------------------------
+# the dry-run on the card (phase 16)
+# ---------------------------------------------------------------------------
+
+# (arch, kernel) of phase 16 (a) and (b), at phases 6, 7 and 13's shapes
+DRYRUN_RUNS = (("llama3.2-1b", "flash_attention"),
+               ("mamba2-130m", "ssd_scan"))
+# phase 16 (c): production cells on the fake (16, 16) cuda mesh
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("mamba2-130m", "prefill_32k"))
+
+
+def dryrun_step_ms(torch, spec, mesh, calls=3) -> float:
+    """Median host time of ``spec.fn(*spec.args)`` on the card (each call
+    ends in a sync), after one warm-up call."""
+    from repro_torch.distributed import sharding as SH
+    times = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SH.use_mesh(mesh):
+            spec.fn(*spec.args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times[1:])[calls // 2]
+
+
+def dryrun_pair(torch, arch, kernel, kind, mesh, seed, measured_ms) -> dict:
+    """Phase 16 (a) and (b), one step: the step of ``build_cell`` on the fake
+    (1, 1) ``cuda`` mesh traced under ``FakeTensorMode`` with the op
+    counter, then the same cell built for real (seed ``seed``) and run on
+    the card under the same counter. The real run's counts, launches and
+    time are held against the trace."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+
+    cfg = CB.get_config(arch)
+    shape = CB.ShapeConfig(f"phase16_{kind}", LM_SEQ, LM_BATCH, kind)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        spec = ST.build_cell(cfg, shape, mesh)
+        traced = DR.count_step(spec, mesh)
+        args_bytes = DR.local_bytes(spec.args)
+    trace_s = time.perf_counter() - t0
+    del spec
+    nodes = traced.kernel_nodes(kernel)
+    ts = traced.summary
+    rl = RL.Roofline(arch=arch, shape=shape.name, mesh="1x1", n_devices=1,
+                     hlo_flops_per_dev=ts.flops, hlo_bytes_per_dev=ts.hbm_bytes,
+                     collective_bytes_per_dev=ts.collective_bytes,
+                     model_flops_global=RL.model_flops(cfg, shape),
+                     per_device_memory=float(args_bytes + traced.peak_bytes))
+
+    torch.cuda.empty_cache()
+    spec = ST.build_cell(cfg, shape, mesh, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()   # the step's peak, args included
+    lm_reset_launches()
+    real = DR.count_step(spec, mesh)
+    torch.cuda.synchronize()
+    launches = lm_launches()
+    peak = torch.cuda.max_memory_allocated()
+    rs = real.summary
+    own_ms = dryrun_step_ms(torch, spec, mesh)
+    del spec
+    torch.cuda.empty_cache()
+
+    per = cfg.num_layers * (2 if kind == "train" and cfg.remat else 1)
+    bound_ms_ = 1e3 * rl.step_time_lower_bound
+    rep = {"trace_s": trace_s, "traced_flops": ts.flops,
+           "real_flops": rs.flops, "traced_hbm_bytes": ts.hbm_bytes,
+           "real_hbm_bytes": rs.hbm_bytes,
+           "collective_bytes": ts.collective_bytes,
+           "traced_nodes": nodes, "real_nodes": real.kernel_nodes(kernel),
+           "launches": launches[kernel], "derived_nodes": per,
+           "roofline": rl.to_json(), "bound_ms": bound_ms_,
+           "measured_ms": measured_ms, "step_ms_on_mesh": own_ms,
+           "predicted_mem_gb": rl.per_device_memory / 1e9,
+           "args_gb": args_bytes / 1e9, "temp_gb": traced.peak_bytes / 1e9,
+           "max_memory_allocated_gb": peak / 1e9}
+    tag = f"{arch} {kind}"
+    check(rs.flops == ts.flops and rs.hbm_bytes == ts.hbm_bytes,
+          f"{tag}: the real step's counted FLOPs {rs.flops:.6e} and HBM "
+          f"bytes {rs.hbm_bytes:.6e} equal the trace's ({ts.flops:.6e}, "
+          f"{ts.hbm_bytes:.6e})")
+    check(nodes == per == launches[kernel] == real.kernel_nodes(kernel),
+          f"{tag}: {nodes} traced {kernel} nodes, {launches[kernel]} "
+          f"launches counted by the wrapper in the real step (derived "
+          f"{per})")
+    check(bound_ms_ <= min(measured_ms, own_ms),
+          f"{tag}: roofline lower bound {bound_ms_:.3f} ms ({rl.bottleneck})"
+          f" is at most the measured step, {measured_ms:.3f} ms (phases 6, 7"
+          f" and 13) and {own_ms:.3f} ms (this mesh)")
+    print(f"{tag} dry-run: {json.dumps(rep)}")
+    return rep
+
+
+def dryrun_child(in_path, out_path) -> int:
+    """Phase 16, in a process of its own (its fake process group cannot
+    share a process with phase 15's NCCL group): (a) and (b) on a fake
+    (1, 1) ``cuda`` mesh, then (c) two production cells on a fake (16, 16)
+    ``cuda`` mesh."""
+    import tempfile
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    t0 = time.perf_counter()
+    inp = json.loads(pathlib.Path(in_path).read_text())
+    _build.build_all(KERNEL_SOURCES)    # built by the parent: loads only
+    out = {"torch": torch.__version__}
+    mesh = make_fake_mesh((1, 1), ("data", "model"), device="cuda")
+    for arch, kernel in DRYRUN_RUNS:
+        for kind in ("prefill", "train"):
+            out[f"{kernel} {kind}"] = dryrun_pair(
+                torch, arch, kernel, kind, mesh, inp["seed"],
+                inp["measured_ms"][kernel][kind])
+    out["cells"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        for arch, shape in DRYRUN_CELLS:
+            rec = DR.run_cell(arch, shape, False, pathlib.Path(d),
+                              device="cuda")
+            ok = rec["status"] == "ok"
+            hs = rec.get("hlo_summary", {})
+            check(ok and hs["flops"] > 0 and hs["hbm_bytes"] > 0
+                  and (hs["collective_bytes"] > 0
+                       or not shape.startswith("train")),
+                  f"{arch} {shape} on the fake (16, 16) cuda mesh: "
+                  f"{rec['status']} {rec.get('error', '')[:300]}, FLOPs "
+                  f"{hs.get('flops')}, HBM bytes {hs.get('hbm_bytes')}, "
+                  f"collective bytes {hs.get('collective_bytes')}")
+            out["cells"][f"{arch} {shape}"] = {
+                k: rec[k] for k in ("n_devices", "build_s", "trace_s",
+                                    "memory_analysis", "roofline")}
+    out["wall_s"] = time.perf_counter() - t0
+    pathlib.Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def dryrun_phase(torch, args, report) -> dict:
+    """Phase 16: :func:`dryrun_child` in a subprocess; returns, per LM
+    kernel, what its row adds."""
+    import tempfile
+    measured = {k: {"prefill": report["lm_prefill"][k]["step_ms"],
+                    "train": report["lm_train"]["train"][k]["step_ms"]}
+                for k in ("flash_attention", "ssd_scan")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as d:
+        inp, res = pathlib.Path(d, "in.json"), pathlib.Path(d, "out.json")
+        inp.write_text(json.dumps({"seed": args.seed,
+                                   "measured_ms": measured}))
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--dryrun-child", str(inp), str(res)],
+                              capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="")
+        check(proc.returncode == 0 and res.exists(),
+              f"phase 16 subprocess exits 0 (exit {proc.returncode}; "
+              f"{proc.stderr[-3000:]})")
+        out = json.loads(res.read_text())
+    print(f"phase 16 (the dry-run): {json.dumps(out)}")
+    report["dryrun"] = out
+    return {k: {"dryrun_nodes_per_prefill": out[f"{k} prefill"]["traced_nodes"],
+                "dryrun_nodes_per_train_step":
+                    out[f"{k} train"]["traced_nodes"],
+                "dryrun_real_launches_per_prefill":
+                    out[f"{k} prefill"]["launches"],
+                "dryrun_real_launches_per_train_step":
+                    out[f"{k} train"]["launches"]}
+            for k in ("flash_attention", "ssd_scan")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
@@ -2447,6 +2619,8 @@ def main(argv=None) -> int:
                     help="Trainer.run steps per model in phase 13")
     ap.add_argument("--out", default=None,
                     help="also write the result lines to this JSON file")
+    ap.add_argument("--dryrun-child", nargs=2, metavar=("IN", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -2458,6 +2632,8 @@ def main(argv=None) -> int:
         print("error: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.dryrun_child:
+        return dryrun_child(*args.dryrun_child)
     sys.path.insert(0, str(SRC))
     import numpy as np
     from repro_torch.api.oracle import LatencyOracle
@@ -2910,6 +3086,11 @@ def main(argv=None) -> int:
 
     # -- 15. the distributed layer ---------------------------------------------
     per_kernel = mesh_phase(torch, np, args, dev, report)
+    for row in lm_rows:
+        row.update(per_kernel[row["name"]])
+
+    # -- 16. the dry-run ------------------------------------------------------
+    per_kernel = dryrun_phase(torch, args, report)
     for row in lm_rows:
         row.update(per_kernel[row["name"]])
 

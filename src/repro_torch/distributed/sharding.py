@@ -249,6 +249,33 @@ def unshard(x, dim: int):
         Replicate() if p.is_shard(dim) else p for p in x.placements))
 
 
+def split_heads(x, heads: int, head_dim: int):
+    """``x`` (..., heads * head_dim) as (..., heads, head_dim). A ``DTensor``
+    is split on each rank's shard (:func:`shard_local`), its last dim
+    gathered first where its mesh dim does not divide ``heads``, so that
+    neither the split nor its gradient's flatten meets uneven shards,
+    which DTensor refuses (mamba2-130m's 24 SSD heads on a model axis of
+    16)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-1], heads, head_dim)
+    last = x.dim() - 1
+    md = mesh_dim_of(x, last)
+    if md is not None and heads % x.device_mesh.size(md):
+        x = unshard(x, last)
+    return shard_local(lambda xl, heads: split_heads(
+        xl, xl.shape[-1] // head_dim, head_dim), (x,), (last,))
+
+
+def merge_heads(x):
+    """``x`` (..., heads, head_dim) as (..., heads * head_dim), the inverse
+    of :func:`split_heads`: a ``DTensor`` on each rank's shard, heads
+    gathered where the mesh does not divide them."""
+    if is_dtensor(x):
+        return shard_local(lambda xl, heads: merge_heads(xl), (x,),
+                           (x.dim() - 2,))
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
 def is_axes_leaf(t) -> bool:
     return isinstance(t, tuple) and all(a is None or isinstance(a, str)
                                         for a in t)
@@ -282,6 +309,17 @@ def _tree(rules, axes, mesh, shapes):
     return out
 
 
+def distribute_tree(tensors: Dict[str, torch.Tensor], mesh,
+                    placements_by_name: Dict[str, tuple]) -> dict:
+    """Each tensor as a ``DTensor`` on ``mesh`` with its placements (the
+    reference's ``in_shardings`` applied to a tree of arrays); every rank
+    holds the whole value and keeps its own shard (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    return {k: distribute_tensor(t, mesh, placements_by_name[k],
+                                 src_data_rank=None)
+            for k, t in tensors.items()}
+
+
 def validate_axes(params: Dict[str, torch.Tensor],
                   axes: Dict[str, tuple]) -> None:
     """Check the axes match the parameters name for name, rank too."""
@@ -309,7 +347,8 @@ def shard_local(fn, args, head_dims):
 
     ``args[0]`` sets the layout: its dim 0 (the batch) and, unless
     ``head_dims[0]`` is None, its dim ``head_dims[0]`` (the heads) may be
-    sharded; any other sharding is gathered first. For each other arg,
+    sharded, each over mesh dims that divide it evenly; any other sharding
+    is gathered first. For each other arg,
     ``head_dims[i]``:
 
     - a dim: the arg has the same batch rows and is sharded along that dim
@@ -328,11 +367,16 @@ def shard_local(fn, args, head_dims):
     x = args[0]
     mesh, hd = x.device_mesh, head_dims[0]
 
+    def even(p, md):   # an uneven split (24 heads over 16) is gathered
+        return x.shape[p.dim] % mesh.size(md) == 0
+
+    x_pl = tuple(p if p.is_shard() and (p.dim == 0 or p.dim == hd)
+                 and even(p, md) else Replicate()
+                 for md, p in enumerate(x.placements))
+
     def heads(p):
         return hd is not None and p.is_shard(hd)
 
-    x_pl = tuple(p if p.is_shard(0) or heads(p) else Replicate()
-                 for p in x.placements)
     if x_pl != tuple(x.placements):
         x = x.redistribute(mesh, x_pl)
     local = [x.to_local()]

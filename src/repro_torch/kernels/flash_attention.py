@@ -15,7 +15,13 @@ elements. float32 runs on the CUDA cores. The plain version is
 ``flash_attention_ref`` (materialized f32 scores, ``tril`` mask, softmax,
 P.V).
 
-Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it.
+Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it,
+through one registered op, ``torch.ops.repro_torch.flash_attention``: its
+CUDA implementation launches the kernel, its CPU implementation is the
+plain version, and its fake implementation gives the output's shape, so
+that ``FakeTensorMode`` traces a call as one node on either device and
+``repro_torch.analysis.opcount`` counts it as :func:`work`.
+``backend="torch"`` calls the plain version without the op.
 
 Gradients: the kernel writes its output through a raw pointer, so a
 tensor it fills has no ``grad_fn``. Whenever grad is enabled and an input
@@ -111,10 +117,40 @@ def flash_attention(q, k, v, *, backend: str = "auto") -> torch.Tensor:
     return _forward(q, k, v, backend)
 
 
-def _forward(q, k, v, backend: str) -> torch.Tensor:
-    if not _build.use_kernel(q, backend, "flash_attention"):
-        return flash_attention_ref(q, k, v)
+def work(q, k) -> tuple:
+    """(bytes, operations) of causal attention: q, k, v read once and the
+    output written once; 4 D operations for each (query, key <= query)
+    pair of a head (q.k and p.v)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
+    return nbytes, 4 * D * B * H * S * (S + 1) // 2
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """The registered op: the plain version on the CPU, the kernel on the
+    card (:func:`kernel_forward`); contiguous, as the kernel writes it."""
+    return flash_attention_ref(q, k, v).contiguous()
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v):
     return kernel_forward(q, k, v)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _forward(q, k, v, backend: str) -> torch.Tensor:
+    if backend == "torch":
+        return flash_attention_ref(q, k, v)
+    _build.use_kernel(q, backend, "flash_attention")  # raises on a misfit
+    return flash_attention_op(q, k, v)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -25,7 +25,13 @@ The plain version is :func:`ssd_chunked`, the port of
 ``repro_torch.kernels.ref.ssd_scan_ref`` (the sequential recurrence) is
 the second oracle of the tests.
 
-Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it.
+Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it,
+through one registered op, ``torch.ops.repro_torch.ssd_scan``: its CUDA
+implementation is the kernel (the three bf16 launches or the float32 one),
+its CPU implementation the plain version, and its fake implementation
+gives Y's shape, so that ``FakeTensorMode`` traces a call as one node on
+either device and ``repro_torch.analysis.opcount`` counts it as
+:func:`work`. ``backend="torch"`` calls the plain version without the op.
 
 Gradients: :func:`ssd_chunked` has two roles. It is the kernel's plain
 version, and it is the reference's own train-time function (the
@@ -239,10 +245,44 @@ def ssd_scan(X, Adt, Bc, Cc, *, chunk: int = DEFAULT_CHUNK,
     return _forward(X, Adt, Bc, Cc, chunk, backend)
 
 
-def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
-    if not _build.use_kernel(X, backend, "ssd_scan"):
-        return ssd_chunked(X, Adt, Bc, Cc, chunk)[0]
+def work(X, Bc, chunk: int) -> tuple:
+    """(bytes, operations) of the chunked SSD scan: X, Adt (f32), Bc, Cc
+    read once and Y written once; per (b, h, chunk) C.B^T (2 N) and
+    scores.X (2 P) for each (position, position j <= it) pair of the chunk,
+    as ``flash_attention.work`` counts only the causal pairs, plus C.S^T
+    and the state update (2 Q N P each)."""
+    B, S, H, P = X.shape
+    N = Bc.shape[-1]
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * X.element_size() \
+        + B * S * H * 4
+    per_chunk = chunk * (chunk + 1) * (N + P) + 4 * chunk * N * P
+    return nbytes, B * H * (S // chunk) * per_chunk
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def ssd_scan_op(X: torch.Tensor, Adt: torch.Tensor, Bc: torch.Tensor,
+                Cc: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The registered op: the plain version on the CPU, the kernel on the
+    card (:func:`kernel_forward`); contiguous, as the kernel writes it."""
+    return ssd_chunked(X, Adt, Bc, Cc, chunk)[0].contiguous()
+
+
+@ssd_scan_op.register_kernel("cuda")
+def _ssd_scan_cuda(X, Adt, Bc, Cc, chunk):
     return kernel_forward(X, Adt, Bc, Cc, chunk=chunk)
+
+
+@ssd_scan_op.register_fake
+def _ssd_scan_fake(X, Adt, Bc, Cc, chunk):
+    return torch.empty(X.shape, dtype=X.dtype, device=X.device)
+
+
+def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
+    if backend == "torch":
+        return ssd_chunked(X, Adt, Bc, Cc, chunk)[0]
+    _build.use_kernel(X, backend, "ssd_scan")  # raises on a misfit
+    return ssd_scan_op(X, Adt, Bc, Cc, chunk)
 
 
 class SSDScan(torch.autograd.Function):

@@ -14,6 +14,11 @@ back to ``gloo`` or to the CPU.
 rule functions of ``repro_torch.distributed.sharding`` read only its
 ``.shape`` (axis name -> size) and ``.axis_names``, as the reference's
 read an ``AbstractMesh``.
+
+:func:`make_fake_mesh` builds a ``DeviceMesh`` over a fake process group
+(torch's ``FakeProcessGroup``: one rank in this process stands for all,
+and no collective moves data), for the dry-run, whose tensors are fake:
+it is the only mesh that may have more ranks than cards.
 """
 from __future__ import annotations
 
@@ -105,9 +110,39 @@ def make_mesh(shape, axes, *, device="cuda"):
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+def make_fake_mesh(shape, axes, *, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over a fake process group
+    of ``prod(shape)`` ranks, this process being rank 0. No rank count is
+    held against the cards: no tensor on this mesh need be real. A fake
+    group of another size is replaced; a real group raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    n = 1
+    for s in shape:
+        n *= s
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group exists; "
+                               "a fake mesh needs its own process")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         fake: bool = False):
+    """The reference's production mesh, (16, 16) or (2, 16, 16); with
+    ``fake`` over a fake process group (:func:`make_fake_mesh`, the
+    dry-run's), else over this process's real group of that many ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        return make_fake_mesh(shape, axes, device=device)
     return make_mesh(shape, axes, device=device)
 
 

@@ -11,18 +11,27 @@ plain torch. The train step's backward recomputes each block
 ``autograd.Function``s. :func:`prefill_batch` builds a prefill batch with
 the family's stub inputs (``patches``, ``frames``).
 
-The reference's dry-run specs (``batch_specs``, ``build_cell``) wait for
-the dry-run port (``ROADMAP.md`` B7). The reference lowers the prefill
-step with bfloat16 params (``steps.py:128``); here the caller casts
+The prefill and decode steps take bfloat16 params, as the reference
+lowers them (``steps.py:128``): the caller casts
 (``repro_torch.models.model.cast``) before it calls the step.
+
+The dry-run's specs (:func:`batch_specs`, :class:`DryrunSpec`,
+:func:`build_cell`) build one (architecture x shape) cell's step and its
+arguments as fake tensors on a mesh, ``DTensor``s with the reference's
+placements, for ``repro_torch.launch.dryrun`` to trace.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.distributed.sharding import full, is_dtensor
 from repro_torch.models import model as M
@@ -115,12 +124,22 @@ def prefill_batch(cfg: ModelConfig, batch_size: int, seq_len: int, *,
     return out
 
 
+def next_tokens(logits) -> torch.Tensor:
+    """(B, 1) int32: the argmax over the padded vocabulary at the last
+    position. Under a mesh that position's (B, 1, V) logits are gathered
+    over the vocabulary shards first (one all-gather), so that every torch
+    version takes a plain argmax (DTensor's sharded argmax differs between
+    them and cannot run on fake tensors)."""
+    last = SH.unshard(logits[:, -1:, :], 2)
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(model, batch) -> (B, 1) int32`` next tokens: the
-    argmax over the padded vocabulary at the last position."""
+    """``prefill_step(model, batch) -> (B, 1) int32`` next tokens
+    (:func:`next_tokens`)."""
     def prefill_step(model, batch):
         logits, _ = M.forward(model, cfg, batch)
-        return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        return next_tokens(logits)
 
     return prefill_step
 
@@ -130,7 +149,130 @@ def make_decode_step(cfg: ModelConfig):
     tokens, new cache)``."""
     def serve_step(model, cache, tokens, cur_len):
         logits, cache = M.decode_step(model, cfg, cache, tokens, cur_len)
-        nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
-        return nxt, cache
+        return next_tokens(logits), cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells: the step and its arguments as fake tensors on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _sds(shape, dtype, device):
+    """A zero tensor: under ``FakeTensorMode`` a fake one, which allocates
+    nothing (the reference's ``ShapeDtypeStruct``)."""
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *, with_labels: bool,
+                device):
+    """(batch tensors, their logical axes) of a cell: int32 ``tokens`` (and
+    ``labels``) (global_batch, seq_len), and the vlm's ``patches`` or the
+    audio family's ``frames`` in bfloat16."""
+    gb, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _sds((gb, s), torch.int32, device)}
+    axes = {"tokens": ("batch", "seq")}
+    if with_labels:
+        specs["labels"] = _sds((gb, s), torch.int32, device)
+        axes["labels"] = ("batch", "seq")
+    if cfg.family == "vlm":
+        specs["patches"] = _sds((gb, cfg.num_patches, cfg.d_model),
+                                torch.bfloat16, device)
+        axes["patches"] = ("batch", None, None)
+    if cfg.family == "audio":
+        specs["frames"] = _sds((gb, cfg.encoder_seq, cfg.d_model),
+                               torch.bfloat16, device)
+        axes["frames"] = ("batch", None, None)
+    return specs, axes
+
+
+def _cast_tree(model, cfg: ModelConfig, dtype=torch.bfloat16):
+    """The model with its floating parameters in ``dtype`` (the serving
+    steps' bf16 params), placements kept."""
+    return M.cast(model, cfg, dtype)
+
+
+@dataclasses.dataclass
+class DryrunSpec:
+    """Everything needed to run one cell: ``fn(*args)`` inside
+    ``sharding.use_mesh``. ``args`` are ``DTensor``s (fake ones for the
+    dry-run) that carry the placements ``in_shardings`` names (placements
+    by name, per argument); ``out_shardings`` are the placements of what
+    ``fn`` returns, None where the step leaves them to DTensor. The
+    reference's ``donate_argnums`` has no counterpart: the train step
+    updates the model's parameters and the optimizer state in place."""
+    fn: Any
+    args: Tuple
+    in_shardings: Tuple
+    out_shardings: Any
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+               seed=None) -> DryrunSpec:
+    """The step and its arguments for one (arch x shape) cell on ``mesh``
+    (a ``DeviceMesh``; tensors on its device type).
+
+    With ``seed`` None every tensor is fake (built under the active
+    ``FakeTensorMode``, or a new one): the dry-run's trace. With a seed the
+    same cell is built for real, the model's random init drawn from it and
+    the batch all zeros, so that the same step can run and be counted
+    beside its trace (``chip_smoke.py`` phase 16)."""
+    dev = torch.device(mesh.device_type)
+    with (M.fake_mode() if seed is None else contextlib.nullcontext()):
+        if seed is None:
+            model, axes = M.abstract_init(cfg, device=dev)
+        else:
+            model = M.init(cfg, seed=seed, device=dev)
+            axes = M.param_axes(model)
+        shapes = {k: p.shape for k, p in model.named_parameters()}
+        p_sh = SH.tree_param_shardings(axes, mesh, shapes)
+        SH.distribute_params(model, mesh, p_sh)
+
+        def act(tensors, axes_tree):
+            shapes_ = {k: v.shape for k, v in tensors.items()}
+            pl = SH.tree_act_shardings(axes_tree, mesh, shapes_)
+            return SH.distribute_tree(tensors, mesh, pl), pl
+
+        if shape.kind == "train":
+            hp = make_opt_hparams(cfg)
+            model.requires_grad_(True)
+            opt = OPT.init_state(dict(model.named_parameters()), hp)
+            opt_axes = OPT.state_axes(axes)
+            o_sh = {"m": SH.tree_param_shardings(opt_axes["m"], mesh, shapes),
+                    "v": SH.tree_param_shardings(opt_axes["v"], mesh, shapes),
+                    "step": SH.spec_placements("act", (), (), mesh)}
+            batch, b_sh = act(*batch_specs(cfg, shape, with_labels=True,
+                                           device=dev))
+            return DryrunSpec(fn=make_train_step(cfg, hp),
+                              args=(model, opt, batch),
+                              in_shardings=(p_sh, o_sh, b_sh),
+                              out_shardings=(p_sh, o_sh, None))
+
+        serve = _cast_tree(model, cfg)
+        if shape.kind == "prefill":
+            batch, b_sh = act(*batch_specs(cfg, shape, with_labels=False,
+                                           device=dev))
+            return DryrunSpec(fn=make_prefill_step(cfg), args=(serve, batch),
+                              in_shardings=(p_sh, b_sh), out_shardings=None)
+
+        # decode: one new token against a seq_len-deep cache
+        if seed is None:
+            cache, c_axes = M.abstract_cache(cfg, shape.global_batch,
+                                             shape.seq_len, device=dev)
+        else:
+            cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device=dev)
+            c_axes = M.cache_axes(cfg)
+        cache, c_sh = act(cache, c_axes)
+        tok_shape = (shape.global_batch, 1)
+        tok_sh = SH.spec_placements("act", ("batch", None), tok_shape, mesh)
+        len_sh = SH.spec_placements("act", (), (), mesh)
+        tokens = SH.distribute_tree(
+            {"t": _sds(tok_shape, torch.int32, dev)}, mesh, {"t": tok_sh})["t"]
+        cur_len = SH.distribute_tree(
+            {"n": _sds((), torch.int32, dev)}, mesh, {"n": len_sh})["n"]
+        return DryrunSpec(fn=make_decode_step(cfg),
+                          args=(serve, cache, tokens, cur_len),
+                          in_shardings=(p_sh, c_sh, tok_sh, len_sh),
+                          out_shardings=(tok_sh, c_sh))

@@ -41,12 +41,13 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                               mesh_dim_of, shard_local,
-                                               unshard)
+from repro_torch.distributed.sharding import (WHOLE, constrain,
+                                               is_dtensor, mesh_dim_of,
+                                               shard_local, unshard)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
                                      _sdpa, reference_attention)
@@ -180,8 +181,30 @@ def project_heads(x, w):
     einsum's view flattens (heads, hd), which DTensor before torch 2.13
     refuses with the inner dim sharded: so a sharded head_dim of the
     weight is gathered first (D x KV x hd, less than the k and v whose
-    head_dim the reference gathers at its ``kv_heads`` constraints)."""
+    head_dim the reference gathers at its ``kv_heads`` constraints). A
+    weight whose heads are whole (wk and wv: ``kv_heads`` is replicated)
+    is gathered whole and applied to each rank's rows (``shard_local``):
+    left to DTensor, the product may shard its (heads x hd) columns over
+    ``model``, and 8 kv heads cannot be unflattened from 16 shards (the
+    (16, 16) production mesh)."""
+    if is_dtensor(x) and mesh_dim_of(w, 1) is None:
+        return shard_local(lambda xl, wl, heads: torch.einsum(
+            "bsd,dhk->bshk", xl, wl.to(xl.dtype)), (x, w), (None, WHOLE))
     return torch.einsum("bsd,dhk->bshk", x, unshard(w, 2).to(x.dtype))
+
+
+def project_out(ctx, wo):
+    """(B,S,H,hd) x (H,hd,D) -> (B,S,D), in ctx's dtype. Under a mesh, a
+    ``ctx`` whose heads are whole is multiplied on each rank's rows by the
+    whole ``wo`` (``shard_local``): left to DTensor, the backward
+    unflattens the (heads x hd) columns of a product sharded over
+    ``model``, which torch 2.11 refuses where the heads do not divide it
+    (whisper-tiny's 6 heads over 16)."""
+    def local(c, w, heads=None):
+        return torch.einsum("bshk,hkd->bsd", c, w.to(c.dtype))
+    if is_dtensor(ctx) and mesh_dim_of(ctx, 2) is None:
+        return shard_local(local, (ctx, wo), (None, WHOLE))
+    return local(ctx, wo)
 
 
 def _project_qkv(p, x, positions, theta, *, decode=False):
@@ -211,12 +234,19 @@ def _project_qkv(p, x, positions, theta, *, decode=False):
 # ---------------------------------------------------------------------------
 
 
+def card_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's ops: a CUDA tensor, or a fake one
+    (``FakeTensorMode``, the dry-run's trace) on either device, so that a
+    trace holds what the card runs."""
+    return x.is_cuda or is_fake(x)
+
+
 def reference_route(x: torch.Tensor, backend: str) -> bool:
     """Whether a block runs the reference's own functions
     (:func:`reference_attention`, ``ssm.ssd_chunked``, autograd straight
-    through them) rather than a kernel wrapper: for ``backend="auto"`` on
-    the CPU."""
-    return backend == "auto" and not x.is_cuda
+    through them) rather than a kernel wrapper: for ``backend="auto"`` off
+    the card (:func:`card_route`)."""
+    return backend == "auto" and not card_route(x)
 
 
 def causal_attention(q, k, v, *, backend: str = "auto"):
@@ -359,7 +389,7 @@ def attention_apply(p, x, cfg, *, positions, window: int = 0,
     else:
         ctx = causal_attention(q, k, v, backend=backend)
     ctx = constrain(ctx, "batch", "seq", "heads", None)
-    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    out = project_out(ctx, p.wo)
     return constrain(out, "batch", "seq", None)
 
 
@@ -393,7 +423,7 @@ def attention_decode_apply(p, x, cfg, *, cache_k, cache_v, cur_len,
     n_valid = torch.clamp(cur_len + 1, max=S)
     ctx = decode_attention(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                            n_valid)
-    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    out = project_out(ctx, p.wo)
     return out, cache_k, cache_v
 
 
@@ -406,7 +436,7 @@ def cross_attention_apply(p, x, context):
     v = project_heads(context, p.wv)
     q = constrain(q, "batch", "seq", "heads", None)
     ctx = cross_attention(q, k, v)
-    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(x.dtype))
+    out = project_out(ctx, p.wo)
     return constrain(out, "batch", "seq", None)
 
 
@@ -433,25 +463,27 @@ class MLPParams(nn.Module):
 
 
 def silu(x):
-    """SiLU. On the card ``F.silu`` (one rounding to x's dtype). On the
-    CPU, the model's plain path, the reference's rounding order:
+    """SiLU. On the card ``F.silu`` (one rounding to x's dtype), and for
+    fake tensors (:func:`card_route`). On the CPU, the model's plain path,
+    the reference's rounding order:
     ``jax.nn.silu`` is ``x * sigmoid(x)``, and XLA computes a bfloat16
     sigmoid as ``1 / (1 + exp(-x))`` rounding after every op, so each op
     here runs in x's dtype (in bfloat16 the two orders round many elements
     differently; in float32 they agree to rounding)."""
-    if x.is_cuda:
+    if card_route(x):
         return F.silu(x)
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def gelu_tanh(x):
     """GELU, tanh approximation (``jax.nn.gelu``'s default). On the card
-    ``F.gelu(x, approximate="tanh")`` (one rounding to x's dtype). On the
+    ``F.gelu(x, approximate="tanh")`` (one rounding to x's dtype), and for
+    fake tensors (:func:`card_route`). On the
     CPU, the model's plain path, the reference's own formula and rounding
     order: ``jax.nn.gelu`` computes ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x
     + 0.044715 * x**3))))`` in x's dtype, its two constants rounded to it
     (0.796875 and 0.0446777 in bfloat16) and every op rounded."""
-    if x.is_cuda:
+    if card_route(x):
         return F.gelu(x, approximate="tanh")
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
     c3 = torch.tensor(0.044715, dtype=x.dtype)

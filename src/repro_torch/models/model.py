@@ -4,8 +4,9 @@ cross entropy plus the auxiliary losses of ``AUX_COEFS``).
 
 Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``), ``hybrid`` (``rglru``) and
-``audio`` (``whisper``). The dry-run's abstract init is not ported
-(``device="meta"`` builds a model that allocates nothing).
+``audio`` (``whisper``). :func:`abstract_init` and :func:`abstract_cache`
+build the model and the decode cache as fake tensors for the dry-run
+(``repro_torch.launch.dryrun``): shapes, dtypes and devices, no memory.
 """
 from __future__ import annotations
 
@@ -88,6 +89,35 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
     return model
 
 
+def fake_mode():
+    """The active ``FakeTensorMode``, or a new one: what :func:`abstract_init`
+    and :func:`abstract_cache` build under, so that a caller inside a mode
+    gets tensors of that mode."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return detect_fake_mode() or FakeTensorMode()
+
+
+def abstract_init(cfg: ModelConfig, *, device="cuda"):
+    """(model, :func:`param_axes`) with the model's float32 parameters
+    fake tensors on ``device`` (never allocated; the reference's
+    ``abstract_init`` gives ShapeDtypeStructs). For the dry-run."""
+    dev = resolve_device(device)
+    with fake_mode():
+        model = build(cfg, device=dev)
+    return model, param_axes(model)
+
+
+def abstract_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+                   device="cuda"):
+    """(decode cache of fake tensors on ``device``, its logical axes by
+    name: the family's ``cache_axes``)."""
+    dev = resolve_device(device)
+    with fake_mode():
+        cache = init_cache(cfg, batch_size, max_len, device=dev)
+    return cache, cache_axes(cfg)
+
+
 def cast(model: nn.Module, cfg: ModelConfig, dtype=torch.bfloat16):
     """A copy of ``model`` with every floating parameter cast to ``dtype``
     (the serving paths' bf16 params); ``model`` itself is left as it is,
@@ -115,6 +145,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     in each of its tensors."""
     return _family_module(cfg).init_cache(cfg, batch_size, max_len,
                                           device=device)
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of each tensor of the family's decode cache, the
+    reference's (``init_cache``'s second result there)."""
+    return _family_module(cfg).cache_axes(cfg)
 
 
 def cache_batch_dims(cfg: ModelConfig) -> Dict[str, int]:

@@ -30,8 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                               shard_local)
+from repro_torch.distributed.sharding import (WHOLE, constrain,
+                                               is_dtensor, shard_local)
 from repro_torch.models import layers as L
 
 # Production mesh model-axis size (both assigned meshes use 16).
@@ -78,6 +78,20 @@ def top_k(gates: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def router_logits(x, router):
+    """(G, S, D) x (D, E) -> (G, S, E) in x's dtype. Under a mesh each rank
+    multiplies its own rows by the whole router (``shard_local``; the
+    router's gradient is summed over the rows' mesh dims): left to DTensor,
+    the backward's product over the flattened (G, S) rows takes a strided
+    shard that torch 2.13 cannot place on fake tensors (the dry-run's
+    (16, 16) train cells)."""
+    def local(xl, rl, heads=None):
+        return torch.einsum("gsd,de->gse", xl, rl.to(xl.dtype))
+    if is_dtensor(x):
+        return shard_local(local, (x, router), (None, WHOLE))
+    return local(x, router)
+
+
 def route(p, x, cfg):
     """The router's decisions for x: (B, S, D). Returns ``(aux, flat_e,
     pos_in_e, keep, w_flat)``: the auxiliary losses (float32), each of the
@@ -87,7 +101,7 @@ def route(p, x, cfg):
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = capacity(cfg, S)
-    logits = torch.einsum("gsd,de->gse", x, p.router.to(x.dtype)).float()
+    logits = router_logits(x, p.router).float()
     gates = torch.softmax(logits, dim=-1)                 # (G,S,E)
     topv, topi = top_k(gates, k)                          # (G,S,k)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)

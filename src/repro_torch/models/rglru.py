@@ -309,6 +309,13 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     }
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`init_cache`'s tensors, the reference's."""
+    kv = ("groups", "batch", "seq_shard", "kv_heads", None)
+    return {"k": kv, "v": kv, "conv": ("groups", "batch", None, "rglru_width"),
+            "rec": ("groups", "batch", "rglru_width")}
+
+
 def decode_step(model: HybridLM, cfg: ModelConfig, cache, tokens, cur_len):
     """tokens: (B,1) int; cur_len: () or (B,) int32 tensor. Returns
     (logits, new cache)."""

@@ -23,7 +23,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (WHOLE, constrain, is_dtensor,
-                                               shard_local)
+                                               merge_heads, shard_local,
+                                               split_heads)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked  # noqa: F401
@@ -151,14 +152,14 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
     xin = constrain(xin, "batch", "seq", "ssm_inner")
 
     H, P_ = cfg.ssm_heads, cfg.ssm_head_dim
-    B, S, _ = x.shape
-    Xh = xin.reshape(B, S, H, P_)
+    S = x.shape[1]
+    Xh = split_heads(xin, H, P_)
     A = -torch.exp(p.A_log)                                 # (H,)
     Adt = (dt * A).float()                                  # (B,S,H), < 0
     Xdt = Xh * dt[..., None].to(Xh.dtype)
     Y = ssd_y(Xdt, Adt, Bc, Cc, min(cfg.ssm_chunk, S), backend)
     Y = Y + Xh * p.D.to(Xh.dtype)[None, None, :, None]
-    y = Y.reshape(B, S, di)
+    y = merge_heads(Y)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     out = y @ p.w_out.to(x.dtype)
     return x + constrain(out, "batch", "seq", None).to(x.dtype)
@@ -176,6 +177,18 @@ def ssd_y(X, A, Bc, Cc, chunk: int, backend: str):
     if L.reference_route(X, backend):
         return ssd_chunked(X, A, Bc, Cc, chunk)[0]
     return ops.ssd_scan(X, A, Bc, Cc, chunk=chunk, backend=backend)
+
+
+def _ssd_decode(Xh, dt1, state, b, c, A, D):
+    """One token of the SSD recurrence: Xh (B,H,P), dt1 (B,H), state
+    (B,H,P,N), b and c (B,N), A and D (H,). Returns (Y (B,H,P), new
+    state)."""
+    decay = torch.exp((dt1 * A).float())                    # (B,H)
+    upd = torch.einsum("bhp,bn->bhpn", Xh * dt1[..., None].to(Xh.dtype), b)
+    state = state * decay[..., None, None].to(state.dtype) \
+        + upd.to(state.dtype)
+    Yh = torch.einsum("bhpn,bn->bhp", state.to(Xh.dtype), c)
+    return Yh + Xh * D.to(Xh.dtype)[None, :, None], state
 
 
 def _ssm_block_decode(p, x, cfg, conv_state, ssm_state):
@@ -197,18 +210,17 @@ def _ssm_block_decode(p, x, cfg, conv_state, ssm_state):
     xin, Bc, Cc = conv_out.split([di, n, n], dim=-1)
 
     H, P_ = cfg.ssm_heads, cfg.ssm_head_dim
-    B = x.shape[0]
-    Xh = xin.reshape(B, H, P_)
+    Xh = split_heads(xin, H, P_)[:, 0]                      # (B,H,P)
     A = -torch.exp(p.A_log)
-    dt1 = dt[:, 0, :]                                       # (B,H)
-    decay = torch.exp((dt1 * A).float())                    # (B,H)
-    upd = torch.einsum("bhp,bn->bhpn", Xh * dt1[..., None].to(Xh.dtype),
-                       Bc[:, 0, :])
-    ssm_state = ssm_state * decay[..., None, None].to(ssm_state.dtype) \
-        + upd.to(ssm_state.dtype)
-    Yh = torch.einsum("bhpn,bn->bhp", ssm_state.to(Xh.dtype), Cc[:, 0, :])
-    Yh = Yh + Xh * p.D.to(Xh.dtype)[None, :, None]
-    y = Yh.reshape(B, 1, di)
+    args = (Xh, dt[:, 0, :], ssm_state, Bc[:, 0, :], Cc[:, 0, :], A, p.D)
+    if is_dtensor(Xh):   # per rank: its batch rows and SSD heads
+        Yh, ssm_state = shard_local(
+            lambda *a, heads: _ssd_decode(*a[:5], *(
+                t[heads[0]:heads[0] + heads[1]] for t in a[5:])),
+            args, (1, 1, 1, None, None, WHOLE, WHOLE))
+    else:
+        Yh, ssm_state = _ssd_decode(*args)
+    y = merge_heads(Yh)[:, None, :]
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     out = y @ p.w_out.to(x.dtype)
     return x + out.to(x.dtype), new_conv_state, ssm_state
@@ -243,6 +255,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                             cfg.ssm_state), dtype=torch.float32,
                            device=device),
     }
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`init_cache`'s tensors, the reference's."""
+    return {"conv": ("layers", "batch", None, "ssm_inner"),
+            "ssm": ("layers", "batch", "ssm_heads", None, None)}
 
 
 def decode_step(model: MambaLM, cfg: ModelConfig, cache, tokens, cur_len):

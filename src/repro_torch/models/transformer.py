@@ -213,6 +213,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     return cache
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`init_cache`'s tensors, the reference's
+    (``transformer.py:162-168``): the sequence is sharded over ``model``."""
+    kv = ("layers", "batch", "seq_shard", "kv_heads", None)
+    axes = {"k": kv, "v": kv}
+    if cfg.family == "vlm":
+        axes["context"] = ("batch", None, None)
+    return axes
+
+
 def decode_step(model: TransformerLM, cfg: ModelConfig, cache, tokens,
                 cur_len):
     """tokens: (B,1) int; cur_len: () or (B,) int32 tensor. Returns

@@ -107,8 +107,7 @@ def _enc_block_apply(p, x, cfg):
     k = L.project_heads(h, p.attn.wk)
     v = L.project_heads(h, p.attn.wv)
     ctx = L.cross_attention(q, k, v)  # bidirectional (unmasked)
-    x, h = L.add_norm(x, torch.einsum("bshk,hkd->bsd", ctx,
-                                     p.attn.wo.to(x.dtype)), p.ln2,
+    x, h = L.add_norm(x, L.project_out(ctx, p.attn.wo), p.ln2,
                      cfg.norm_eps)
     return x + L.mlp_apply(p.mlp, h)
 
@@ -161,6 +160,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
             "enc_out": torch.zeros((batch_size, cfg.encoder_seq,
                                     cfg.d_model), dtype=torch.bfloat16,
                                    device=device)}
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`init_cache`'s tensors, the reference's."""
+    kv = ("layers", "batch", "seq_shard", "kv_heads", None)
+    return {"k": kv, "v": kv, "enc_out": ("batch", None, None)}
 
 
 def decode_step(model: WhisperLM, cfg: ModelConfig, cache, tokens,

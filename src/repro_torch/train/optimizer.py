@@ -80,6 +80,11 @@ def init_state(params: Dict[str, torch.Tensor], hp: OptHParams) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_axes(axes: Dict[str, tuple]) -> dict:
+    """Optimizer-state logical axes: the moments mirror the params."""
+    return {"m": axes, "v": axes, "step": ()}
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether the reference decays this parameter: its array has
     ``ndim >= 2``, where a parameter of a stacked layer tree (``blocks``,

@@ -114,13 +114,10 @@ class Trainer:
                for k, v in batch.items()}
         if self.mesh is None:
             return out
-        from torch.distributed.tensor import distribute_tensor
         axes = {k: ("batch",) + (None,) * (v.dim() - 1)
                 for k, v in out.items()}
-        pl = SH.tree_act_shardings(axes, self.mesh,
-                                   {k: v.shape for k, v in out.items()})
-        return {k: distribute_tensor(v, self.mesh, pl[k], src_data_rank=None)
-                for k, v in out.items()}
+        return SH.distribute_tree(out, self.mesh, SH.tree_act_shardings(
+            axes, self.mesh, {k: v.shape for k, v in out.items()}))
 
     def train_one(self, batch=None) -> Dict[str, float]:
         if batch is None:
