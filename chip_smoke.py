@@ -7,7 +7,7 @@
 Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all at once) and drives the port's paths: PROFET serving, LM
-serving, LM training, and LM training on a device mesh.
+serving, LM training, and LM training and serving on a device mesh.
 
 The PROFET path: it fits the paper-grid predictor (4 devices, 346 cases,
 linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
@@ -193,9 +193,28 @@ process group cannot share a process with phase 15's NCCL group):
      ``torch.cuda.max_memory_allocated``; (c) llama3.2-1b ``train_4k``
      and mamba2-130m ``prefill_32k`` through ``launch.dryrun.run_cell``
      on a fake (16, 16) ``cuda`` mesh: each ``ok`` with FLOPs and HBM
-     bytes above 0, and collective bytes above 0 for the train cell. The
-     kernels' line adds the traced nodes and the real launches per step
-     (``dryrun_*`` keys).
+     bytes above 0, and collective bytes above 0 for the train cell; then
+     llama3.2-1b ``decode_32k`` there, ``ok`` with its collective bytes,
+     HBM bytes and all-gathers per device per token printed, the
+     collective bytes at most 300 MB (decode attention gathers neither
+     the seq-sharded cache nor its scores). The kernels' line adds the
+     traced nodes and the real launches per step (``dryrun_*`` keys).
+
+Serving on a mesh, on phase 15's NCCL group and (1, 1) mesh (printed
+after phase 15):
+
+ 17. ``Engine(mesh=...)`` serves phase 8's 8 requests (4 slots, 16 new
+     tokens, max_len 128, continuous) for llama3.2-1b and mamba2-130m at
+     full width and depth from phase 8's random weights: stats and
+     completion order exactly phase 8's ``mesh=None`` engine's, the tokens
+     equal up to each request's first parting and there within the bf16
+     margin (the mesh run's own logits may favour its token by at most 2 x
+     2e-2 x max |logit|), whether every token was equal printed, decode
+     tokens/s beside phase 8's, no LM kernel launched and no plain version
+     called (decode runs neither). Then every family at SMOKE in bfloat16
+     through ``Engine(mesh=(2, 2))`` on 4 ``gloo`` ranks on this
+     machine's CPU, continuous, 5 requests on 2 slots, against
+     ``mesh=None`` by the same rules, every rank's tokens the same.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -1277,22 +1296,35 @@ def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
             "step": step, "batch": batch}
 
 
-def lm_serve(torch, np, arch, cfg, model, args) -> dict:
+# the LM engine runs of phases 8, 14 and 17: requests, slots, new tokens,
+# cache length (continuous mode)
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16, 128
+
+
+def serve_prompts(np, cfg, seed) -> list:
+    """The engine runs' prompts, drawn as ``launch/serve.py`` does."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(SERVE_REQUESTS):
+        plen = int(rng.integers(2, 12))
+        out.append(rng.integers(1, min(cfg.vocab_size, 1000),
+                                size=plen).tolist())
+    return out
+
+
+def lm_serve(torch, np, arch, cfg, model, args, keep_tokens=False) -> dict:
     """Phase 7: 8 requests through ``Engine`` (4 slots, 16 new tokens,
-    max_len 128, continuous), prompts drawn as ``launch/serve.py`` does."""
+    max_len 128, continuous), prompts drawn as ``launch/serve.py`` does.
+    With ``keep_tokens`` the report adds the tokens and the completion
+    order (not printed), which phase 17 holds its mesh engine against."""
     from repro_torch.models import layers as L
     from repro_torch.serve.engine import Engine
 
-    eng = Engine(cfg, model, batch_slots=4, max_len=128)
-    rng = np.random.default_rng(args.seed)
-    reqs = []
-    for _ in range(8):
-        plen = int(rng.integers(2, 12))
-        reqs.append(eng.submit(
-            rng.integers(1, min(cfg.vocab_size, 1000), size=plen).tolist(),
-            max_new_tokens=16))
+    eng = Engine(cfg, model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    reqs = [eng.submit(p, max_new_tokens=SERVE_NEW)
+            for p in serve_prompts(np, cfg, args.seed)]
     lm_reset_launches()
-    eng.run()
+    done = eng.run()
     torch.cuda.synchronize()
     pv = L.padded_vocab(cfg.vocab_size)
     s = eng.stats
@@ -1308,6 +1340,9 @@ def lm_serve(torch, np, arch, cfg, model, args) -> dict:
            "beyond_vocab_tokens": sum(t >= cfg.vocab_size for r in reqs
                                       for t in r.output)}
     print(f"{arch} serve: {json.dumps(rep)}")
+    if keep_tokens:
+        rep.update(outputs=[r.output for r in reqs],
+                   order=[r.uid for r in done])
     return rep
 
 
@@ -1512,7 +1547,7 @@ def lm_phases(torch, np, args, dev, report) -> list:
     counts = {k: r["report"]["launches"] for k, r in runs.items()}
     report["lm_prefill"] = {k: r["report"] for k, r in runs.items()}
     report["lm_serve"] = {k: lm_serve(torch, np, r["cfg"].name, r["cfg"],
-                                      r["model"], args)
+                                      r["model"], args, keep_tokens=True)
                           for k, r in runs.items()}
     errs, cases, hmma = lm_kernel_checks(
         torch, np, runs["flash_attention"]["seen"], runs["ssd_scan"]["seen"],
@@ -2385,7 +2420,8 @@ def mesh_model_parallel(np, tmp) -> dict:
 
 
 def mesh_phase(torch, np, args, dev, report) -> dict:
-    """Phase 15; returns, per LM kernel, what its row adds."""
+    """Phase 15, then phase 17 (its first part on phase 15's NCCL group
+    and mesh); returns, per LM kernel, what its row adds."""
     import os
     import tempfile
     import torch.distributed as dist
@@ -2411,9 +2447,15 @@ def mesh_phase(torch, np, args, dev, report) -> dict:
                                                         dev, ckpt)
                 del tr
                 torch.cuda.empty_cache()
+            t17 = time.perf_counter()
+            serve = mesh_serve(torch, np, mesh, args, dev, report)
+            t17 = time.perf_counter() - t17
         finally:
             dist.destroy_process_group()
         out["model_parallel"] = mesh_model_parallel(np, d)
+        t = time.perf_counter()
+        serve["model_parallel"] = mesh_serve_model_parallel(d)
+        serve["wall_s"] = t17 + time.perf_counter() - t
     p13 = report["lm_train"]["train"]
     for kernel in ("flash_attention", "ssd_scan"):
         r = out[kernel]
@@ -2425,15 +2467,228 @@ def mesh_phase(torch, np, args, dev, report) -> dict:
               f"{p13[kernel]['peak_mem_gb']:.2f} GB; traced step, mesh "
               f"{json.dumps(r['mesh']['trace'])}, mesh=None "
               f"{json.dumps(r['none']['trace'])}")
-    out["wall_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t0 - serve["wall_s"]
     print(f"phase 15 (the distributed layer): {json.dumps(out)}")
     report["mesh"] = out
+    print(f"phase 17 (serving on a mesh): {json.dumps(serve)}")
+    report["mesh_serve"] = serve
     return {k: {"mesh_train_launches_per_step":
                 out[k]["mesh"]["launches_per_step"][-1],
                 "mesh_train_launches": sum(
                     out[k]["mesh"]["launches_per_step"]),
                 "mesh_train_step_ms": out[k]["mesh"]["step_ms"]}
             for k in ("flash_attention", "ssd_scan")}
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh (phase 17)
+# ---------------------------------------------------------------------------
+
+# the bf16 decode-step bar of the CPU parity tests: where a mesh run's
+# tokens first part from another run's, the mesh run's own logits may
+# favour its token over the other by at most 2 x this x max |logit|
+BF16_BAR = 2e-2
+# the 4-gloo-rank check: every family at SMOKE in bfloat16, continuous
+# (per-slot lengths), the CPU tests' 5 requests on 2 slots (slots are
+# reused); the CPU tests also run every family in wave mode
+SERVE_MP_ARCHS = ("llama3.2-1b", "mamba2-130m", "dbrx-132b",
+                  "llama-3.2-vision-90b", "whisper-tiny", "recurrentgemma-2b")
+SERVE_MP_PROMPTS = ([1, 2, 3], [7, 8], [4, 5, 6, 9], [2, 2], [11])
+SERVE_MP_NEW = (5, 3, 6, 2, 4)
+SERVE_MP_SLOTS, SERVE_MP_MAX_LEN = 2, 32
+
+
+def engine_run(cfg, model, prompts, new, slots, max_len, mode, mesh):
+    """Prompts through one ``Engine``: (tokens per request, uids in
+    completion order, (waves, decode steps, prefill tokens, generated
+    tokens), tokens/s)."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(cfg, model, batch_slots=slots, max_len=max_len, mesh=mesh,
+                 mode=mode)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+    done = eng.run()
+    s = eng.stats
+    return ([r.output for r in reqs], [r.uid for r in done],
+            (s.waves, s.decode_steps, s.prefill_tokens, s.generated_tokens),
+            s.tokens_per_s)
+
+
+def engine_partings(cfg, model, mesh, prompts, slots, max_len, mode, got,
+                    want) -> list:
+    """Where each request's tokens ``got`` (a mesh engine's) first part from
+    ``want``: (request, place, got token, wanted token, the gap between
+    their logits in the mesh run, the bar 2 x BF16_BAR x max |logit|), or
+    None where they are all equal. The mesh run's logits there come from
+    the same fed tokens through the decode step on ``mesh``, every slot
+    of a cache of the engine's size fed them, so that each rank computes
+    its rows at the engine's local shapes (a collective on a mesh of many
+    ranks: every rank calls it)."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    out, placed = [], None
+    for i, (g, w) in enumerate(zip(got, want)):
+        k = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if k is None:
+            out.append(None if len(g) == len(w)
+                       else (i, -1, len(g), len(w), 0.0, 0.0))
+            continue
+        if mode == "continuous":
+            seq = list(prompts[i]) + g[:k]
+        else:        # left-padded to the wave's longest prompt
+            wave = prompts[i - i % slots:i - i % slots + slots]
+            seq = [0] * (max(map(len, wave)) - len(prompts[i])) \
+                + list(prompts[i]) + g[:k]
+        dev = torch.device(mesh.device_type)
+        cache = M.init_cache(cfg, slots, max_len, device=dev)
+        if placed is None:
+            placed, _ = ST.place_model(cfg, mesh, M.cast(model, cfg))
+        with SH.use_mesh(mesh), torch.no_grad():
+            for t, tok in enumerate(seq):
+                cur = torch.full((slots,) if mode == "continuous" else (), t,
+                                 dtype=torch.int32, device=dev)
+                args_, _ = ST.place_decode_args(
+                    cfg, mesh, placed, cache, torch.full(
+                        (slots, 1), tok, dtype=torch.int32, device=dev), cur)
+                placed, cache, toks, cur = args_
+                logits, cache = M.decode_step(placed, cfg, cache, toks, cur)
+            lg = SH.full(logits)[0, -1].float()
+        out.append((i, k, g[k], w[k], float(lg[g[k]] - lg[w[k]]),
+                    2 * BF16_BAR * float(lg.abs().max())))
+    return out
+
+
+def partings_ok(parts) -> bool:
+    return all(p is None or (p[1] >= 0 and 0 <= p[4] <= p[5]) for p in parts)
+
+
+def mesh_serve(torch, np, mesh, args, dev, report) -> dict:
+    """Phase 17 on the card, on phase 15's one-rank NCCL group and (1, 1)
+    mesh: ``Engine(mesh=...)`` serves phase 8's 8 requests for llama3.2-1b
+    and mamba2-130m at full width and depth from phase 8's random weights
+    (the same seed), held against phase 8's ``mesh=None`` engine: stats and
+    completion order exactly, tokens by the bf16 margin rule; no LM kernel
+    launched and no plain version called (decode runs neither)."""
+    from repro_torch.configs import base as CB
+    from repro_torch.models import model as M
+
+    out = {}
+    for arch, kernel in (("llama3.2-1b", "flash_attention"),
+                         ("mamba2-130m", "ssd_scan")):
+        cfg = CB.get_config(arch)
+        model = M.cast(M.init(cfg, seed=args.seed, device=dev), cfg,
+                       torch.bfloat16)
+        torch.cuda.empty_cache()
+        p8 = report["lm_serve"][kernel]
+        prompts = serve_prompts(np, cfg, args.seed)
+        lm_reset_launches()
+        with PlainCalls() as plain:
+            outs, order, stats, tps = engine_run(
+                cfg, model, prompts, [SERVE_NEW] * len(prompts), SERVE_SLOTS,
+                SERVE_MAX_LEN, "continuous", mesh)
+        torch.cuda.synchronize()
+        launches = sum(lm_launches().values())
+        want = (0, p8["decode_steps"], p8["prefill_tokens"],
+                p8["generated_tokens"])
+        parts = engine_partings(cfg, model, mesh, prompts, SERVE_SLOTS,
+                                SERVE_MAX_LEN, "continuous", outs,
+                                p8["outputs"])
+        rep = {"stats": stats, "order_equal": order == p8["order"],
+               "every_token_equal": all(p is None for p in parts),
+               "partings": [p for p in parts if p is not None],
+               "tokens_per_s": tps, "phase8_tokens_per_s": p8["tokens_per_s"],
+               "launches": launches, "plain_calls": dict(plain.counts)}
+        check(stats == want and order == p8["order"],
+              f"{arch} engine on the (1, 1) mesh: stats {stats} and "
+              f"completion order equal phase 8's mesh=None engine ({want})")
+        check(partings_ok(parts),
+              f"{arch} engine on the (1, 1) mesh: tokens equal phase 8's up "
+              f"to each first parting, within the bf16 margin there "
+              f"({rep['partings']}; every token equal: "
+              f"{rep['every_token_equal']})")
+        check(launches == 0 and sum(plain.counts.values()) == 0,
+              f"{arch} engine on the mesh: {launches} LM kernel launches, "
+              f"{plain.counts} plain-version calls (decode runs neither)")
+        print(f"{arch} serve on the (1, 1) mesh: decode {tps:.1f} tok/s "
+              f"(phase 8, mesh=None: {p8['tokens_per_s']:.1f} tok/s); "
+              f"every token equal to phase 8's: {rep['every_token_equal']}")
+        out[arch] = rep
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mp_case(arch, mesh) -> dict:
+    """One family at SMOKE in bfloat16 from seed 0 (the vlm's gates set),
+    continuous, through ``Engine(mesh=mesh)`` and ``Engine(mesh=None)`` on
+    the CPU: each run, where the mesh run's tokens part from the other,
+    and every rank's tokens (a collective)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import base as CB
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="bfloat16")
+    model = M.init(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            gate = MESH_MP_GATES.get(k.rpartition(".")[2])
+            if gate is not None:
+                p.fill_(gate)
+    got, one = (engine_run(cfg, model, SERVE_MP_PROMPTS, SERVE_MP_NEW,
+                           SERVE_MP_SLOTS, SERVE_MP_MAX_LEN, "continuous", m)
+                for m in (mesh, None))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got[:3])
+    return {"mesh": got[:3], "none": one[:3],
+            "same_on_every_rank": all(e == got[:3] for e in every),
+            "partings": engine_partings(
+                cfg, model, mesh, SERVE_MP_PROMPTS, SERVE_MP_SLOTS,
+                SERVE_MP_MAX_LEN, "continuous", got[0], one[0])}
+
+
+def serve_mp_rank(rank, world, out_path):
+    """Phase 17, in each of the 4 gloo ranks: every family's engines;
+    rank 0 writes the results."""
+    import pickle
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*MESH_MP, device="cpu")
+    out = {arch: serve_mp_case(arch, mesh) for arch in SERVE_MP_ARCHS}
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+
+
+def mesh_serve_model_parallel(tmp) -> dict:
+    """Phase 17: :func:`serve_mp_rank` on 4 gloo ranks; each run held
+    against its ``mesh=None`` engine: stats and completion order exactly,
+    the tokens by the bf16 margin rule, every rank's the same."""
+    import os
+    import pickle
+    import torch
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "serve_mp.pkl")
+    spawn(serve_mp_rank, 4, device="cpu", args=(path,))
+    with open(path, "rb") as f:
+        res = pickle.load(f)
+    out = {"torch": torch.__version__, "mesh": str(MESH_MP), "runs": {}}
+    for arch, r in res.items():
+        equal = all(p is None for p in r["partings"])
+        check(r["mesh"][1:] == r["none"][1:] and r["same_on_every_rank"]
+              and partings_ok(r["partings"]),
+              f"{arch} SMOKE continuous engine on the {MESH_MP[0]} gloo mesh "
+              f"(torch {torch.__version__}): stats {r['mesh'][2]} and "
+              f"completion order {r['mesh'][1]} equal mesh=None's "
+              f"({r['none'][2]}, {r['none'][1]}); the same on every rank: "
+              f"{r['same_on_every_rank']}; partings "
+              f"{[p for p in r['partings'] if p]} (every token equal: "
+              f"{equal})")
+        out["runs"][arch] = {"every_token_equal": equal}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2444,7 +2699,12 @@ def mesh_phase(torch, np, args, dev, report) -> dict:
 DRYRUN_RUNS = (("llama3.2-1b", "flash_attention"),
                ("mamba2-130m", "ssd_scan"))
 # phase 16 (c): production cells on the fake (16, 16) cuda mesh
-DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("mamba2-130m", "prefill_32k"))
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("mamba2-130m", "prefill_32k"),
+                ("llama3.2-1b", "decode_32k"))
+# the decode cell's collective bytes per device per token: its weights'
+# FSDP gathers (256.8 MB on the CPU trace) and decode attention's
+# statistics and partial outputs, no gathered scores (761.1 MB with them)
+DECODE_32K_MAX_COLLECTIVE_BYTES = 300e6
 
 
 def dryrun_step_ms(torch, spec, mesh, calls=3) -> float:
@@ -2574,6 +2834,21 @@ def dryrun_child(in_path, out_path) -> int:
             out["cells"][f"{arch} {shape}"] = {
                 k: rec[k] for k in ("n_devices", "build_s", "trace_s",
                                     "memory_analysis", "roofline")}
+            if shape == "decode_32k":
+                gathers = [c["out_bytes"] for c in hs["collectives"]
+                           if "all_gather" in c["op"]]
+                dec = {"collective_bytes": hs["collective_bytes"],
+                       "hbm_bytes": hs["hbm_bytes"],
+                       "all_gathers": len(gathers),
+                       "largest_all_gather_bytes": max(gathers, default=0)}
+                out["cells"][f"{arch} {shape}"].update(dec)
+                print(f"{arch} {shape} on the fake (16, 16) cuda mesh, per "
+                      f"device per token: {json.dumps(dec)}")
+                check(hs["collective_bytes"]
+                      <= DECODE_32K_MAX_COLLECTIVE_BYTES,
+                      f"{arch} {shape}: {hs['collective_bytes']:.6e} "
+                      f"collective bytes per device, at most "
+                      f"{DECODE_32K_MAX_COLLECTIVE_BYTES:.0e}")
     out["wall_s"] = time.perf_counter() - t0
     pathlib.Path(out_path).write_text(json.dumps(out))
     return 0

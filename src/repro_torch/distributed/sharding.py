@@ -340,7 +340,7 @@ def validate_axes(params: Dict[str, torch.Tensor],
 WHOLE = "whole"  # a shard_local arg with no batch dim, whole on every rank
 
 
-def shard_local(fn, args, head_dims):
+def shard_local(fn, args, head_dims, *, reduced: bool = False):
     """``fn`` on this rank's shards of ``args`` (``DTensor``s), as a
     reference ``shard_map`` region runs its body: a kernel sees plain
     local tensors only.
@@ -362,7 +362,12 @@ def shard_local(fn, args, head_dims):
 
     ``fn(*locals, heads=(h0, n))`` learns the global index of its first
     head and their count. Each output of ``fn`` (a tensor or a tuple of
-    them) has ``args[0]``'s layout."""
+    them) has ``args[0]``'s layout; with ``reduced``, ``fn`` has combined
+    the ranks' parts over the mesh dims that shard the head dim itself
+    (:func:`all_reduce`), and each output is whole over them.
+
+    The "heads" dim may be any dim the ranks split and ``fn`` combines:
+    ``layers.decode_attention`` names the cache's sequence."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     x = args[0]
     mesh, hd = x.device_mesh, head_dims[0]
@@ -406,6 +411,37 @@ def shard_local(fn, args, head_dims):
     per = x.shape[hd] // n if hd is not None else 0
     out = fn(*local, heads=(idx * per, per))
 
+    out_pl = tuple(Replicate() if reduced and heads(p) else p for p in x_pl)
+
     def wrap(t):
-        return DTensor.from_local(t, mesh, x_pl, run_check=False)
+        return DTensor.from_local(t, mesh, out_pl, run_check=False)
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, mesh_dim: int) -> torch.Tensor:
+    """A plain tensor reduced (``"sum"``, ``"max"``) over the ranks of one
+    mesh dim, each rank getting the result: one functional collective,
+    which the op counter and a fake process group both see."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t, op, (mesh, mesh_dim))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def local_index(x, dim: int, i: int) -> Optional[int]:
+    """Where global index ``i`` of ``x``'s dim ``dim`` lies in this rank's
+    shard, or None where another rank holds it: ``i`` for a plain tensor
+    or a dim that is whole. The mesh dims that shard ``dim`` split it in
+    mesh-dim order, each as ``torch.chunk`` does (DTensor's ``Shard``)."""
+    if not is_dtensor(x):
+        return i
+    mesh = x.device_mesh
+    start, length = 0, x.shape[dim]
+    for md, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n = mesh.size(md)
+            chunk = -(-length // n)
+            c = mesh.get_local_rank(md)
+            start += c * chunk
+            length = max(0, min(chunk, length - c * chunk))
+    return i - start if start <= i < start + length else None

@@ -258,21 +258,62 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
         # decode: one new token against a seq_len-deep cache
         if seed is None:
-            cache, c_axes = M.abstract_cache(cfg, shape.global_batch,
-                                             shape.seq_len, device=dev)
+            cache, _ = M.abstract_cache(cfg, shape.global_batch,
+                                        shape.seq_len, device=dev)
         else:
             cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
                                  device=dev)
-            c_axes = M.cache_axes(cfg)
-        cache, c_sh = act(cache, c_axes)
-        tok_shape = (shape.global_batch, 1)
-        tok_sh = SH.spec_placements("act", ("batch", None), tok_shape, mesh)
-        len_sh = SH.spec_placements("act", (), (), mesh)
-        tokens = SH.distribute_tree(
-            {"t": _sds(tok_shape, torch.int32, dev)}, mesh, {"t": tok_sh})["t"]
-        cur_len = SH.distribute_tree(
-            {"n": _sds((), torch.int32, dev)}, mesh, {"n": len_sh})["n"]
-        return DryrunSpec(fn=make_decode_step(cfg),
-                          args=(serve, cache, tokens, cur_len),
+        tokens = _sds((shape.global_batch, 1), torch.int32, dev)
+        args, (_, c_sh, tok_sh, len_sh) = place_decode_args(
+            cfg, mesh, serve, cache, tokens, _sds((), torch.int32, dev))
+        return DryrunSpec(fn=make_decode_step(cfg), args=args,
                           in_shardings=(p_sh, c_sh, tok_sh, len_sh),
                           out_shardings=(tok_sh, c_sh))
+
+
+def place_decode_args(cfg: ModelConfig, mesh, model, cache, tokens,
+                      cur_len):
+    """The decode step's arguments on ``mesh`` and their placements by
+    name: ``((model, cache, tokens, cur_len), (model's, cache's, tokens',
+    cur_len's))``. The bf16 model by ``param_axes`` (a copy of the
+    module whose parameters are ``DTensor``s, sharing the caller's
+    storage; a model whose parameters are all ``DTensor``s already is
+    left as it is), the cache by the family's ``cache_axes``, the (B, 1)
+    tokens on ``("batch", None)``, ``cur_len`` (() or (B,)) replicated.
+    A tensor that is a ``DTensor`` already is left as it is, so the
+    serving engine passes the cache a step returned straight back. Every
+    rank passes the same whole values and keeps its own shards: no
+    collective. The dry-run's decode cells and ``serve.engine.Engine``
+    place their arguments here."""
+    model, p_sh = place_model(cfg, mesh, model)
+    c_axes = M.cache_axes(cfg)
+    c_sh = SH.tree_act_shardings(c_axes, mesh,
+                                 {k: v.shape for k, v in cache.items()})
+    tok_sh = SH.spec_placements("act", ("batch", None), tokens.shape, mesh)
+    len_sh = SH.spec_placements("act", (None,) * cur_len.dim(),
+                                cur_len.shape, mesh)
+
+    def place(tensors, placements):
+        plain = {k: t for k, t in tensors.items() if not is_dtensor(t)}
+        return {**tensors, **SH.distribute_tree(plain, mesh, {
+            k: placements[k] for k in plain})}
+
+    cache = place(cache, c_sh)
+    tokens = place({"t": tokens}, {"t": tok_sh})["t"]
+    cur_len = place({"n": cur_len}, {"n": len_sh})["n"]
+    return (model, cache, tokens, cur_len), (p_sh, c_sh, tok_sh, len_sh)
+
+
+def place_model(cfg: ModelConfig, mesh, model):
+    """(``model`` on ``mesh`` by ``param_axes``, its placements by name): a
+    copy of the module whose parameters are ``DTensor``s holding this
+    rank's shards of the caller's tensors, or ``model`` itself where its
+    parameters are all ``DTensor``s already."""
+    shapes = {k: p.shape for k, p in model.named_parameters()}
+    p_sh = SH.tree_param_shardings(M.param_axes(model), mesh, shapes)
+    if not all(is_dtensor(p) for p in model.parameters()):
+        copy = M.build(cfg, device="meta")
+        copy.load_state_dict(model.state_dict(), assign=True)
+        SH.distribute_params(copy, mesh, p_sh)
+        model = copy
+    return model, p_sh

@@ -45,7 +45,7 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (WHOLE, constrain,
+from repro_torch.distributed.sharding import (WHOLE, all_reduce, constrain,
                                                is_dtensor, mesh_dim_of,
                                                shard_local, unshard)
 from repro_torch.kernels import ops
@@ -353,24 +353,87 @@ def cross_attention(q, k, v):
 
 
 def decode_attention(q, cache_k, cache_v, cur_len):
-    """One-token decode vs a KV cache.
+    """One-token decode vs a (possibly seq-sharded) KV cache.
 
     q: (B, 1, H, hd); cache_k/v: (B, Smax, KV, hd); cur_len: () or (B,)
     int32 — number of valid cache positions per sequence (the new token's
     K/V must already be written at cur_len - 1).
+
+    Where the cache is a ``DTensor`` whose sequence is sharded (the
+    ``seq_shard`` axis of ``cache_axes``), each rank attends over its own
+    slice of the cache and the scores stay sharded, as the reference's
+    comment says its compiler lowers the softmax: the rank masks its
+    positions by their global index, takes its local max and exp-sum and
+    one all-reduce of each over the mesh dim that shards the sequence
+    ((B, H, 1, 1) each), rounds the normalised probabilities to q's dtype
+    where the reference does and contracts them with its value shard in
+    that dtype, and the (B, 1, H, hd) partial outputs are summed in
+    float32 over that mesh dim (:func:`_seq_sharded_decode`).
+    Neither the cache nor the scores are gathered. The batch stays split
+    over the data axes as it is.
     """
+    md = mesh_dim_of(cache_k, 1)
+    if md is not None:
+        return _seq_sharded_decode(q, cache_k, cache_v, cur_len, md)
+    return _decode_local(q, cache_k, cache_v, cur_len, 0, None)
+
+
+def _decode_local(q, cache_k, cache_v, lens, start: int, group):
+    """:func:`decode_attention` over the cache positions ``[start, start +
+    cache_k.shape[1])``, plain tensors. Without ``group`` this is the
+    reference's function op for op over the whole cache. With ``group``
+    (mesh, mesh dim) the other positions lie on the other ranks of that
+    mesh dim: the softmax's max and sum and the output are all-reduced
+    over it, the partial outputs summed in float32 and returned so; each
+    query head meets its kv head by a grouped product, so the rank's
+    cache is read as it lies (not repeated H / KV times, nor cast)."""
     B, _, H, hd = q.shape
     S = cache_k.shape[1]
-    k = _repeat_kv(cache_k, H)
-    v = _repeat_kv(cache_v, H)
     scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
-    s = constrain(s, "batch", None, None, "seq_shard")
-    lens = cur_len.reshape(-1, 1, 1, 1)
-    valid = torch.arange(S, device=q.device)[None, None, None, :] < lens
-    s = torch.where(valid, s, -1e30)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", p, v)
+    pos = torch.arange(start, start + S, device=q.device)
+    valid = pos[None, None, None, :] < lens.reshape(-1, 1, 1, 1)
+    if group is None:
+        k = _repeat_kv(cache_k, H)
+        v = _repeat_kv(cache_v, H)
+        s = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+        s = constrain(s, "batch", None, None, "seq_shard")
+        s = torch.where(valid, s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqs,bshk->bqhk", p, v)
+    KV = cache_k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)     # head h reads kv head h // G
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k).float() * scale
+    s = torch.where(valid, s.reshape(B, H, 1, S), -1e30)
+    m = all_reduce(s.amax(dim=-1, keepdim=True), "max", *group)
+    e = torch.exp(s - m)
+    z = all_reduce(e.sum(dim=-1, keepdim=True), "sum", *group)
+    p = (e / z).to(q.dtype).reshape(B, KV, H // KV, 1, S)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, cache_v)
+    return all_reduce(out.reshape(B, 1, H, hd).float(), "sum", *group)
+
+
+def _seq_sharded_decode(q, cache_k, cache_v, cur_len, md: int):
+    """:func:`decode_attention` with the cache's sequence sharded over mesh
+    dim ``md``: each rank on its own batch rows and cache positions
+    (``sharding.shard_local`` with the sequence as the split dim), q
+    whole over its heads on every rank of ``md``, the result whole over
+    ``md`` in q's dtype."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, S = cache_k.device_mesh, cache_k.shape[1]
+    lens = cur_len
+    if not is_dtensor(lens):
+        lens = DTensor.from_local(lens, mesh, (Replicate(),) * mesh.ndim,
+                                  run_check=False)
+
+    def local(k, v, ql, ll, heads):
+        start, n = heads
+        if n == S:    # the shard_local gathered an uneven split
+            return _decode_local(ql, k, v, ll, 0, None)
+        return _decode_local(ql, k, v, ll, start, (mesh, md)).to(ql.dtype)
+
+    return shard_local(local, (cache_k, cache_v, q, lens),
+                       (1, 1, None, WHOLE if lens.dim() == 0 else None),
+                       reduced=True)
 
 
 # ---------------------------------------------------------------------------

@@ -208,6 +208,8 @@ def _ssm_block_decode(p, x, cfg, conv_state, ssm_state):
                       [:, None, :] + p.conv_b.to(x.dtype)[None, None, :])
     new_conv_state = window[:, 1:, :]
     xin, Bc, Cc = conv_out.split([di, n, n], dim=-1)
+    # the SSD heads over model, as the state's: no rank gathers the state
+    xin = constrain(xin, "batch", None, "ssm_inner")
 
     H, P_ = cfg.ssm_heads, cfg.ssm_head_dim
     Xh = split_heads(xin, H, P_)[:, 0]                      # (B,H,P)

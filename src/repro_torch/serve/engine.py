@@ -15,8 +15,21 @@ ported from ``repro.serve.engine``.
 
 The model's floating parameters are cast to bfloat16 (a copy; the
 caller's model is left as it is). PyTorch runs the step eagerly on the
-model's device; the reference's ``jax.jit`` and mesh have no counterpart
-on one card.
+model's device; the reference's ``jax.jit`` has no counterpart.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` over a process group of one rank
+per device, ``repro_torch.launch.mesh``) every rank builds the same
+engine, takes the same ``submit``s and runs the same scheduler; ``run()``
+returns the same requests, tokens and stats on every rank. The decode
+step (``launch.steps.make_decode_step``) runs inside
+``sharding.use_mesh`` on arguments placed by ``launch.steps.
+place_decode_args``, the dry-run's placement: the parameters by their
+logical axes, the cache's slots over the data axes and its sequence over
+``model`` (the reference's ``cache_axes``), the tokens' slots over the
+data axes and ``cur_len`` replicated. The next tokens are the step's
+last-position argmax over the gathered vocabulary, gathered whole over
+the slots before they reach the host. A slot is reset on the rank that
+holds its row, on that rank's shard.
 """
 from __future__ import annotations
 
@@ -27,7 +40,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import steps as ST
 from repro_torch.models import model as M
 
 
@@ -69,16 +85,22 @@ class Engine:
     """
 
     def __init__(self, cfg: ModelConfig, model, *, batch_slots: int = 4,
-                 max_len: int = 512, mode: str = "continuous"):
+                 max_len: int = 512, mesh=None, mode: str = "continuous"):
         if mode not in ("continuous", "wave"):
             raise ValueError(f"unknown engine mode {mode!r}")
         self.cfg = cfg
+        self.mesh = mesh
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.mode = mode
         self.model = M.cast(model, cfg, torch.bfloat16)
         self._batch_dims = M.cache_batch_dims(cfg)
-        self.device = next(self.model.parameters()).device
+        if mesh is None:
+            self.device = next(self.model.parameters()).device
+        else:
+            self.device = resolve_device(mesh.device_type)
+            self.model, _ = ST.place_model(cfg, mesh, self.model)
+            self._step = ST.make_decode_step(cfg)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self.stats = EngineStats()
@@ -87,11 +109,18 @@ class Engine:
     def _decode(self, cache, toks: np.ndarray, cur):
         """One decode step: the greedy next token of every slot (host
         numpy) and the new cache."""
-        logits, cache = M.decode_step(
-            self.model, self.cfg, cache,
-            torch.as_tensor(toks, dtype=torch.int32, device=self.device),
-            torch.as_tensor(cur, dtype=torch.int32, device=self.device))
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        toks = torch.as_tensor(toks, dtype=torch.int32, device=self.device)
+        cur = torch.as_tensor(cur, dtype=torch.int32, device=self.device)
+        if self.mesh is None:
+            logits, cache = M.decode_step(self.model, self.cfg, cache, toks,
+                                          cur)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            return nxt.cpu().numpy(), cache
+        with SH.use_mesh(self.mesh), torch.no_grad():
+            args, _ = ST.place_decode_args(self.cfg, self.mesh, self.model,
+                                           cache, toks, cur)
+            nxt, cache = self._step(*args)
+            nxt = SH.full(nxt)[:, 0]
         return nxt.cpu().numpy(), cache
 
     # ------------------------------------------------------------------
@@ -157,9 +186,15 @@ class Engine:
         per-layer caches, dim 0 of the vlm ``context`` and the audio
         ``enc_out``). The attention mask hides stale KV, but the recurrent
         families carry cumulative state that MUST be cleared when a slot is
-        reassigned."""
-        for name, t in cache.items():
-            t.select(self._batch_dims[name], slot).zero_()
+        reassigned. On a mesh only the ranks that hold the slot's row zero
+        it, in their own shard (``sharding.local_index``): no collective,
+        and no copy that ``select`` on a ``DTensor`` could hand back."""
+        with torch.no_grad():
+            for name, t in cache.items():
+                d = self._batch_dims[name]
+                i = SH.local_index(t, d, slot)
+                if i is not None:
+                    SH.local(t).select(d, i).zero_()
 
     def _run_continuous(self) -> None:
         """Inflight batching: per-slot positions, immediate slot refill."""

@@ -173,6 +173,267 @@ def moe_functions(rank, world, job_path):
 
 
 # ---------------------------------------------------------------------------
+# serving on a mesh (tests/test_torch_mesh_serve.py)
+# ---------------------------------------------------------------------------
+
+# the bf16 decode-step bar of tests/test_torch_engine.py
+BF16_BAR = 2e-2
+
+
+def _serve_model(arch, named):
+    """The port's bf16-config SMOKE model holding the whole tensors
+    ``named`` (port names -> numpy)."""
+    from repro_torch.models import model as M
+    cfg = _cfg(arch, "bfloat16")
+    model = M.build(cfg, device="meta")
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                           for k, v in named.items()}, assign=True)
+    return cfg, model
+
+
+def _engine_run(cfg, model, mode, mesh, job, eos=None):
+    """``job``'s prompts through one engine: (outputs, uids in completion
+    order, (waves, decode steps, prefill tokens, generated tokens))."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(cfg, model, batch_slots=job["slots"],
+                 max_len=job["max_len"], mesh=mesh, mode=mode)
+    reqs = [eng.submit(p, max_new_tokens=n)
+            for p, n in zip(job["prompts"], job["new"])]
+    done = eng.run()
+    s = eng.stats
+    return ([r.output for r in reqs], [r.uid for r in done],
+            (s.waves, s.decode_steps, s.prefill_tokens, s.generated_tokens))
+
+
+def fed(prompts, slots, mode, i):
+    """The tokens request ``i`` is fed before its first output: its prompt,
+    left-padded with 0 to its wave's longest prompt in wave mode."""
+    if mode == "continuous":
+        return list(prompts[i])
+    lo = i - i % slots
+    wave = prompts[lo:lo + slots]
+    return [0] * (max(map(len, wave)) - len(prompts[i])) + list(prompts[i])
+
+
+def mesh_logits(cfg, model, seq, mesh, job, mode):
+    """The bf16 logits (whole, float32) after ``seq``, fed one token at a
+    time through the decode step on ``mesh`` as the engine feeds a slot,
+    in a cache of the engine's slots and length with every slot fed
+    ``seq``, so that each rank computes its rows at the engine's local
+    shapes (per-slot lengths in continuous mode, one in wave mode). A
+    collective: every rank calls it."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    B = job["slots"]
+    cache = M.init_cache(cfg, B, job["max_len"], device="cpu")
+    with SH.use_mesh(mesh), torch.no_grad():
+        for t, tok in enumerate(seq):
+            cur = torch.full((B,) if mode == "continuous" else (), t,
+                             dtype=torch.int32)
+            args, _ = ST.place_decode_args(
+                cfg, mesh, model, cache,
+                torch.full((B, 1), tok, dtype=torch.int32), cur)
+            model, cache, tokens, cur_len = args
+            logits, cache = M.decode_step(model, cfg, cache, tokens, cur_len)
+        return SH.full(logits)[0, -1].float()
+
+
+def partings(cfg, model, mesh, job, mode, got, want):
+    """Where each request's tokens ``got`` (the mesh run's) first part from
+    ``want``: (request, place, got token, wanted token, the mesh run's
+    logit gap between them, the bar 2 x BF16_BAR x max |logit|), or for a
+    request whose tokens are all equal, None; a length mismatch gives
+    (request, -1, ...)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            out.append(None)
+            continue
+        k = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if k is None:
+            out.append((i, -1, len(g), len(w), 0.0, 0.0))
+            continue
+        lg = mesh_logits(cfg, model, fed(job["prompts"], job["slots"], mode,
+                                         i) + g[:k], mesh, job, mode)
+        out.append((i, k, g[k], w[k], float(lg[g[k]] - lg[w[k]]),
+                    2 * BF16_BAR * float(lg.abs().max())))
+    return out
+
+
+def _serve_case(case, mesh, job):
+    """One family in both modes on ``mesh``: the mesh engine, the
+    ``mesh=None`` engine from the same params, where the tokens part from
+    it (and from the reference's, when the case carries them), every
+    rank's outputs, and the cache's placements before and after a step."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    cfg, model = _serve_model(case["arch"], case["params"])
+    placed, _ = ST.place_model(cfg, mesh, M.cast(model, cfg))
+    out = {"arch": case["arch"], "modes": {}}
+    for mode in ("continuous", "wave"):
+        got = _engine_run(cfg, model, mode, mesh, job)
+        one = _engine_run(cfg, model, mode, None, job)
+        ranks_ = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks_, got)
+        rec = {"mesh": got, "none": one, "every_rank": ranks_,
+               "vs_none": partings(cfg, placed, mesh, job, mode, got[0],
+                                   one[0])}
+        out["modes"][mode] = rec
+    B = job["slots"]
+    cache = M.init_cache(cfg, B, job["max_len"], device="cpu")
+    with SH.use_mesh(mesh), torch.no_grad():
+        args, _ = ST.place_decode_args(
+            cfg, mesh, placed, cache, torch.ones((B, 1), dtype=torch.int32),
+            torch.arange(B, dtype=torch.int32) * 7)
+        _, new = ST.make_decode_step(cfg)(*args)
+    out["cache_placements"] = {k: (tuple(args[1][k].placements),
+                                   tuple(new[k].placements)) for k in new}
+    return out
+
+
+def _decode_attention_cases(mesh):
+    """``decode_attention`` on a (4, 32) cache whose slots are split over
+    ``data`` and sequence over ``model`` (16 positions a rank), per-slot
+    lengths falling in either rank's half and a scalar one, float32 and
+    bfloat16, against the function on the whole tensors: the largest
+    difference, max |out|, and the collectives each issued."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed.sharding import full, use_mesh
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    B, S, H, KV, hd = 4, 32, 4, 2, 16
+    q0, k0, v0 = (torch.randn(s, generator=g) for s in (
+        (B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, lens in (("per slot", torch.tensor([3, 16, 17, 32],
+                                                     dtype=torch.int32)),
+                           ("scalar", torch.tensor(21, dtype=torch.int32))):
+            q, k, v = (t.to(dtype) for t in (q0, k0, v0))
+            want = L.decode_attention(q, k, v, lens)
+            cache_pl = (Shard(0), Shard(1))
+            dq = distribute_tensor(q, mesh, (Shard(0), Replicate()),
+                                   src_data_rank=None)
+            dk, dv = (distribute_tensor(t, mesh, cache_pl,
+                                        src_data_rank=None) for t in (k, v))
+            with use_mesh(mesh), CommDebugMode() as comm:
+                got = L.decode_attention(dq, dk, dv, lens)
+            whole = full(got)
+            out[(str(dtype).split(".")[-1], name)] = {
+                "err": float((whole.float() - want.float()).abs().max()),
+                "max_abs": float(want.float().abs().max()),
+                "dtype": str(whole.dtype), "placements": tuple(
+                    got.placements),
+                "comms": {str(c): n for c, n in
+                          comm.get_comm_counts().items()}}
+    return out
+
+
+def _reset_cases(mesh, archs):
+    """``Engine._reset_slot`` of slots 1 and 2 on each family's 4-slot cache
+    placed on ``mesh`` (slots over ``data``: slot 1 on the first data
+    rank, slot 2 on the second), filled with the same random values on
+    every rank: whether each whole tensor is the fill with that slot
+    zeroed, whether this rank's shard changed exactly where it holds the
+    slot, and the collectives the reset issued."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed.sharding import (full, local, local_index,
+                                                  use_mesh)
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+    out = {}
+    for arch in archs:
+        cfg = _cfg(arch, "bfloat16")
+        model = M.init(cfg, seed=0, device="cpu")
+        eng = Engine(cfg, model, batch_slots=4, max_len=32, mesh=mesh)
+        dims = M.cache_batch_dims(cfg)
+        g = torch.Generator().manual_seed(1)
+        cache = M.init_cache(cfg, 4, 32, device="cpu")
+        for t in cache.values():
+            t.copy_(torch.randn(t.shape, generator=g).to(t.dtype) + 3)
+        want = {k: t.clone() for k, t in cache.items()}
+        with use_mesh(mesh):
+            (_, cache, _, _), _ = ST.place_decode_args(
+                cfg, mesh, eng.model, cache,
+                torch.zeros((4, 1), dtype=torch.int32),
+                torch.zeros(4, dtype=torch.int32))
+        rec = {"whole": True, "local": True, "comms": {},
+               "sharded": all(any(p.is_shard(dims[k]) for p in t.placements)
+                              for k, t in cache.items())}
+        for slot in (1, 2):
+            before = {k: local(t).clone() for k, t in cache.items()}
+            with CommDebugMode() as comm:
+                eng._reset_slot(cache, slot)
+            rec["comms"].update({str(c): n for c, n in
+                                 comm.get_comm_counts().items()})
+            for k, t in cache.items():
+                want[k].select(dims[k], slot).zero_()
+                rec["whole"] &= torch.equal(full(t), want[k])
+                changed = not torch.equal(local(t), before[k])
+                rec["local"] &= changed == (local_index(t, dims[k], slot)
+                                            is not None)
+        out[arch] = rec
+    return out
+
+
+def _vs_reference(job, mesh, out):
+    """Wait for the reference's runs (``job["ref_out"]``, written by a
+    process started beside the ranks; rank 0 reads it and hands it on),
+    then add each such case's reference runs and where the mesh run's
+    tokens part from them."""
+    import os
+    import time
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    box = [None]
+    if dist.get_rank() == 0:
+        t0 = time.time()
+        while not os.path.exists(job["ref_out"]):
+            if time.time() - t0 > job.get("ref_wait_s", 240):
+                raise TimeoutError(f"no {job['ref_out']}")
+            time.sleep(0.2)
+        with open(job["ref_out"], "rb") as f:
+            box[0] = pickle.load(f)
+    dist.broadcast_object_list(box, src=0)
+    out["reference_devices"] = box[0]["devices"]
+    for case, res in zip(job["cases"], out["cases"]):
+        runs = box[0]["cases"].get(case["arch"])
+        if runs is None:
+            continue
+        cfg, model = _serve_model(case["arch"], case["params"])
+        placed, _ = ST.place_model(cfg, mesh, M.cast(model, cfg))
+        for mode, rec in res["modes"].items():
+            rec["ref"] = runs[mode]
+            rec["vs_ref"] = partings(cfg, placed, mesh, job, mode,
+                                     rec["mesh"][0], runs[mode][0])
+
+
+def serve_each(rank, world, job_path):
+    """Serving on a (2, 2) ``("data", "model")`` mesh: each case of
+    ``job["cases"]`` through the mesh engine and the ``mesh=None`` one
+    (:func:`_serve_case`), then ``decode_attention`` on a seq-sharded
+    cache and ``_reset_slot`` on batch-sharded caches; rank 0 writes."""
+    from repro_torch.launch.mesh import make_mesh
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {"cases": [_serve_case(c, mesh, job) for c in job["cases"]],
+           "decode_attention": _decode_attention_cases(mesh),
+           "reset": _reset_cases(mesh, [c["arch"] for c in job["cases"]]),
+           "world": world}
+    if job.get("ref_out"):
+        _vs_reference(job, mesh, out)
+    if rank == 0:
+        with open(job["out"], "wb") as f:
+            pickle.dump(out, f)
+
+
+# ---------------------------------------------------------------------------
 # test-process side (imports JAX; never called in a rank)
 # ---------------------------------------------------------------------------
 
@@ -231,6 +492,89 @@ def reference_train(repo, tmp, arch, seq, steps=3, batch=4, dtype="float32"):
         pickle.dump(dict(arch=arch, dtype=dtype, seq=seq, batch=batch,
                          steps=steps, hp=HP), f)
     _run([_JAX_TRAIN, str(job), str(out)], repo)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+_JAX_SERVE = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import sys, pickle, dataclasses
+sys.path.insert(0, "src")
+import jax, numpy as np
+from repro.configs import base as CB
+from repro.models import model as JM
+from repro.serve.engine import Engine
+job = pickle.load(open(sys.argv[1], "rb"))
+# Auto axes, as the reference's trainer needs under jax 0.9.0
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2),
+                         ("data", "model"))
+out = {"devices": jax.device_count(), "cases": {}}
+for arch, params in job["params"].items():
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="bfloat16")
+    runs = {}
+    for mode in ("continuous", "wave"):
+        eng = Engine(cfg, params, batch_slots=job["slots"],
+                     max_len=job["max_len"], mesh=mesh, mode=mode)
+        reqs = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(job["prompts"], job["new"])]
+        done = eng.run()
+        s = eng.stats
+        runs[mode] = ([r.output for r in reqs], [r.uid for r in done],
+                      (s.waves, s.decode_steps, s.prefill_tokens,
+                       s.generated_tokens))
+    out["cases"][arch] = runs
+pickle.dump(out, open(sys.argv[2] + ".part", "wb"))
+os.replace(sys.argv[2] + ".part", sys.argv[2])   # whole when it appears
+"""
+
+
+def reference_params(arch, seed=0):
+    """The reference's bf16-config SMOKE params from
+    ``jax.random.PRNGKey(seed)``, as a numpy tree."""
+    import jax
+    from repro.configs import base as CB
+    from repro.models import model as JM
+    cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
+                              dtype="bfloat16")
+    return jax.tree.map(np.asarray, JM.init(jax.random.PRNGKey(seed),
+                                            cfg)[0])
+
+
+def start_reference_serve(repo, tmp, job):
+    """Start the reference's ``Engine`` on the Auto-axis (2, 2) mesh of 4
+    forced host devices, both modes, for each arch of ``job["params"]``
+    (arch -> numpy tree) in a subprocess; :func:`finish` returns each
+    arch's mode -> (outputs, completion order, stats)."""
+    path, out = tmp / "jax_serve.pkl", tmp / "jax_serve_out.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(job, f)
+    return _start([_JAX_SERVE, str(path), str(out)], repo), out
+
+
+def start_ranks(repo, tmp, fn: str, world: int, job: dict, name: str):
+    """:func:`ranks`, started: :func:`finish` returns what rank 0 wrote."""
+    path, out = tmp / f"{name}.pkl", tmp / f"{name}_out.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(dict(job, out=str(out)), f)
+    return _start([_TORCH_RANKS, fn, str(world), str(path)], repo), out
+
+
+def _start(argv, cwd):
+    import subprocess
+    import sys
+    return subprocess.Popen([sys.executable, "-c", *argv], cwd=cwd,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(started, timeout=300):
+    proc, out = started
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
     with open(out, "rb") as f:
         return pickle.load(f)
 
