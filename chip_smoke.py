@@ -7,7 +7,8 @@
 Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all at once) and drives the port's paths: PROFET serving, LM
-serving, LM training, and LM training and serving on a device mesh.
+serving, LM training of every family, and LM training and serving on a
+device mesh.
 
 The PROFET path: it fits the paper-grid predictor (4 devices, 346 cases,
 linear + 60-tree forest + DNN members, 150 DNN epochs, random DNN init from
@@ -197,7 +198,11 @@ process group cannot share a process with phase 15's NCCL group):
      llama3.2-1b ``decode_32k`` there, ``ok`` with its collective bytes,
      HBM bytes and all-gathers per device per token printed, the
      collective bytes at most 300 MB (decode attention gathers neither
-     the seq-sharded cache nor its scores). The kernels' line adds the
+     the seq-sharded cache nor its scores). (d) phase 18's configurations,
+     each chosen from its trace on a fake (1, 1) ``cuda`` mesh: from the
+     published depth down, float32 Adam moments before bfloat16, the first
+     whose arguments and peak temporaries are predicted at most 72 GB; its
+     prediction and roofline bound are printed. The kernels' line adds the
      traced nodes and the real launches per step (``dryrun_*`` keys).
 
 Serving on a mesh, on phase 15's NCCL group and (1, 1) mesh (printed
@@ -215,6 +220,32 @@ after phase 15):
      through ``Engine(mesh=(2, 2))`` on 4 ``gloo`` ranks on this
      machine's CPU, continuous, 5 requests on 2 slots, against
      ``mesh=None`` by the same rules, every rank's tokens the same.
+
+Training the remaining families, after phase 16, one model at a time:
+
+ 18. for dbrx-132b, llama-3.2-vision-90b, whisper-tiny and
+     recurrentgemma-2b at every width as published, at phase 16 (d)'s
+     configuration (dbrx-132b 1 of 40 layers, the vision model 2 self + 1
+     cross layers, both with bfloat16 Adam moments; whisper-tiny whole;
+     recurrentgemma-2b whole with bfloat16 moments), on (4, 2048) tokens
+     ((4, 448) for whisper's decoder, with 1,500 frames; the vlm with 1,024
+     patches): one float32 SMOKE train step on the card and on the CPU
+     (loss and grad norm within 1e-4 relative); where the family launches
+     the flash kernel, one step's gradients through it against the plain
+     path at that configuration (phase 13's float32 and bf16 per-tensor
+     bars; launches and recomputes as derived); then ``Trainer.run`` for
+     ``--train-steps`` steps, the vlm gates set to 0.5 and -0.3 first:
+     every gradient after step 1 finite and not all zero, every loss finite
+     and the last 3 below the first 3, flash launches and backward
+     recomputes per step as derived from the config (2 / 1, 4 / 2, 8 / 4,
+     0 / 0), the peak allocation over what was allocated before the
+     Trainer within 5% of the prediction, the median step at or above the
+     roofline bound; step ms, tokens/s, peak GB, and one traced step
+     (device ms of ``FlashAttentionBackward``, ``moe/route``,
+     ``rglru/scan``, ``attention/local`` where they exist; idle share).
+     Each cut goes into the report's ``reduced`` list with its predicted
+     GB; the kernels' line adds the ``train_*`` keys to the
+     ``flash_attention/<arch>`` rows. Its wall time is printed.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -384,13 +415,13 @@ def is_kernel(name, key) -> bool:
 
 
 # the train step's profiler ranges (launch/steps.py), the hybrid's RG-LRU
-# scan and local attention ranges (models/rglru.py, models/layers.py), and
-# the kernels' Function backwards, whose device time traces report
-# inclusive of what they launch
-RANGES = ("train_step/", "rglru/", "attention/")
+# scan and local attention ranges (models/rglru.py, models/layers.py), the
+# MoE router's (models/moe.py), and the kernels' Function backwards, whose
+# device time traces report inclusive of what they launch
+RANGES = ("train_step/", "rglru/", "attention/", "moe/")
 TRACED_SPANS = ("train_step/forward", "train_step/optimizer",
                 "FlashAttentionBackward", "SSDScanBackward", "rglru/scan",
-                "attention/local")
+                "attention/local", "moe/route")
 
 
 def kernel_kind(key) -> str:
@@ -1585,6 +1616,29 @@ RTOL_TRAIN_CARD_VS_CPU = 1e-4
 TRAIN_GRAD_LAYERS = 2
 
 
+def kernel_layers(cfg, kernel="flash_attention") -> int:
+    """Layers whose forward calls ``kernel``'s wrapper once, so its counted
+    launches in one prefill, from the config: for flash attention the
+    causal self-attention layers (the transformer's blocks, the Whisper
+    decoder's; none for the hybrid, whose layers all have a window and take
+    the plain local attention, or for the ssm); for the SSD scan the ssm's
+    Mamba-2 blocks."""
+    if kernel == "ssd_scan":
+        return cfg.num_layers if cfg.family == "ssm" else 0
+    return 0 if cfg.family in ("hybrid", "ssm") else cfg.num_layers
+
+
+def per_train_step(cfg, kernel="flash_attention") -> tuple:
+    """(launches, backward recomputes) of ``kernel`` in one train step, from
+    the config: each layer of :func:`kernel_layers` launches it in the
+    forward and, with ``cfg.remat``, again when ``torch.utils.checkpoint``
+    recomputes its block in the backward (each forward launches through the
+    kernel's Function); each Function's backward recomputes the reference's
+    function once."""
+    n = kernel_layers(cfg, kernel)
+    return n * (2 if cfg.remat else 1), n
+
+
 def train_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -1594,41 +1648,49 @@ def train_counts() -> dict:
             "ssd_scan/backward": ssd_mod.backward_recomputes["ssd_scan"]}
 
 
-def device_batch(torch, np, cfg, dev, seed, index=0):
+def device_batch(torch, np, cfg, dev, seed, index=0, seq=LM_SEQ):
     from repro_torch.data import pipeline as DP
-    b = DP.make_pipeline(cfg, seq_len=LM_SEQ, global_batch=LM_BATCH,
+    b = DP.make_pipeline(cfg, seq_len=seq, global_batch=LM_BATCH,
                          seed=seed).batch_at(index)
     return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
 
 
-def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
-    """Phase 13, one model: ``Trainer.run`` at full width and depth on
-    (4, 2048) tokens, float32 params and Adam state, bf16 activations,
-    remat. With ``ckpt_dir`` it checkpoints mid-run and checks the restore
-    on the card and on the CPU."""
-    from repro_torch.configs import base as CB
+# phase 18: the train step's peak allocation, over what was allocated
+# before its Trainer, may differ from the dry-run's prediction (arguments
+# plus the counter's peak of temporaries) by this share of the prediction
+MEM_VS_PREDICTED = 0.05
+
+
+def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
+             hp=None, pred=None) -> dict:
+    """``Trainer.run`` of ``cfg`` for ``args.train_steps`` steps on (4,
+    ``seq``) tokens, float32 params, bf16 activations, remat; Adam state
+    as ``hp`` says (the trainer's own by default: float32). Phase 13: the
+    dense and ssm models at full width and depth; with ``ckpt_dir`` it
+    checkpoints mid-run and checks the restore on the card and on the CPU.
+    Phase 18: the remaining families at the dry-run's cut (``pred``, its
+    prediction): the vlm gates set to ``VLM_GATES`` before the first step,
+    and the peak allocation and step time held against the prediction."""
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train.trainer import Trainer, TrainConfig
 
-    cfg = CB.get_config(arch)
+    arch = cfg.name
     other = "ssd_scan" if kernel == "flash_attention" else "flash_attention"
     steps = args.train_steps
-    # derived from the code before the run: each block calls the kernel's
-    # wrapper once; with cfg.remat torch.utils.checkpoint runs the block's
-    # forward again in the backward, and each forward launches the kernel
-    # through its Function; each Function's backward recomputes the
-    # reference's function once
-    per_step = cfg.num_layers * (2 if cfg.remat else 1)
-    per_step_backward = cfg.num_layers
+    # derived from the config before the run (per_train_step)
+    per_step, per_step_backward = per_train_step(cfg, kernel)
     mid = steps // 2
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, TrainConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+    tr = Trainer(cfg, TrainConfig(seq_len=seq, global_batch=LM_BATCH,
                                   num_steps=steps, log_every=0,
                                   ckpt_every=mid if ckpt_dir else 0,
                                   ckpt_dir=ckpt_dir, seed=args.seed),
-                 device=dev)
+                 hp, device=dev)
+    set_vlm_gates(torch, tr.model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tr.model.parameters())
@@ -1675,11 +1737,17 @@ def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
           f"the first 3 mean {first:.4f}")
     times = [h["step_time_s"] for h in tr.history[1:]]
     step_ms = 1e3 * float(np.median(times))
+    peak = torch.cuda.max_memory_allocated()
     rep = {"params": n_params, "init_s": init_s, "steps": steps,
            "losses": losses, "step_ms": step_ms,
            "step_ms_all": [1e3 * h["step_time_s"] for h in tr.history],
-           "tokens_per_s": LM_BATCH * LM_SEQ / step_ms * 1e3,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tokens_per_s": LM_BATCH * seq / step_ms * 1e3,
+           "peak_mem_gb": peak / 1e9,
+           "peak_over_base_gb": (peak - base) / 1e9,
+           # cudaMalloc retries after freeing the cache in this run: a
+           # step near the card's capacity pays for them in host time
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries", 0) - retries,
            # measured: the counts of this run over its steps
            "launches_per_step": counts[kernel] // steps,
            "backward_recomputes_per_step":
@@ -1687,6 +1755,18 @@ def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
            "launches": counts[kernel],
            "backward_recomputes": counts[f"{kernel}/backward"],
            "grad_norms": [h["grad_norm"] for h in tr.history]}
+    if pred is not None:
+        want = pred["predicted_bytes"]
+        rep.update(predicted_gb=want / 1e9, bound_ms=pred["bound_ms"])
+        check(abs(peak - base - want) <= MEM_VS_PREDICTED * want,
+              f"{arch} Trainer.run: peak allocation {(peak - base) / 1e9:.3f}"
+              f" GB over the {base / 1e9:.3f} GB before the Trainer, within "
+              f"{MEM_VS_PREDICTED:.0%} of the dry-run's prediction "
+              f"{want / 1e9:.3f} GB")
+        check(step_ms >= pred["bound_ms"],
+              f"{arch} Trainer.run: step {step_ms:.1f} ms (median of steps "
+              f"2-{steps}) at or above the dry-run's roofline bound "
+              f"{pred['bound_ms']:.1f} ms ({pred['bottleneck']})")
 
     if ckpt_dir:
         like = {"params": tr.params, "opt": tr.opt_state,
@@ -1705,7 +1785,7 @@ def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
             check(same, f"{arch}: the step-{mid} checkpoint saved on the "
                   f"card restores on {where.type} bit for bit (params, "
                   f"Adam moments, step, data index)")
-        fresh = Trainer(cfg, TrainConfig(seq_len=LM_SEQ,
+        fresh = Trainer(cfg, TrainConfig(seq_len=seq,
                                          global_batch=LM_BATCH,
                                          num_steps=steps, ckpt_dir=ckpt_dir,
                                          seed=args.seed + 1), device=dev)
@@ -1716,31 +1796,37 @@ def lm_train(torch, np, arch, kernel, args, dev, ckpt_dir=None) -> dict:
               f"{arch}: a fresh Trainer on the card resumes from the step-"
               f"{steps} checkpoint, params bit for bit")
         del fresh
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     rep["trace"] = traced(torch, tr.train_one)
+    rep["trace"]["alloc_retries"] = torch.cuda.memory_stats().get(
+        "num_alloc_retries", 0) - retries
     print(f"{arch} train: {json.dumps(rep)}")
     del tr
     torch.cuda.empty_cache()
     return rep
 
 
-def lm_grad_check(torch, np, arch, kernel, args, dev) -> dict:
-    """Phase 13: one step's parameter gradients at full width and
-    TRAIN_GRAD_LAYERS layers, (4, 2048) tokens, through the kernel (its
-    Function: the kernel's forward, the reference's gradient recomputed)
-    against the plain path (``backend="torch"``: the kernel's plain version
-    through the same Function). float32: per tensor within RTOL_GRAD_F32
-    of its largest plain gradient. bf16, per tensor: the kernel path's
-    gradient at most BF16_VS_PLAIN times as far from the float32 plain
-    gradient as the bf16 plain path's, or as BF16_GRAD_FLOOR if that is
-    larger (each gap relative to the tensor's max |float32 plain grad|)."""
-    from repro_torch.configs import base as CB
+def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
+    """One step's parameter gradients of ``cfg`` (phase 13: full width and
+    TRAIN_GRAD_LAYERS layers; phase 18: the dry-run's cut), (4, ``seq``)
+    tokens, through the kernel (its Function: the kernel's forward, the
+    reference's gradient recomputed) against the plain path
+    (``backend="torch"``: the kernel's plain version through the same
+    Function). float32: per tensor within RTOL_GRAD_F32 of its largest
+    plain gradient. bf16, per tensor: the kernel path's gradient at most
+    BF16_VS_PLAIN times as far from the float32 plain gradient as the bf16
+    plain path's, or as BF16_GRAD_FLOOR if that is larger (each gap
+    relative to the tensor's max |float32 plain grad|). The float32 plain
+    gradients wait on the host, so that the card holds one set of
+    gradients at a time; the vlm gates are ``VLM_GATES``."""
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(CB.get_config(arch),
-                              num_layers=TRAIN_GRAD_LAYERS)
+    arch = cfg.name
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = M.init(cfg, seed=args.seed, device=dev).requires_grad_(True)
-    batch = device_batch(torch, np, cfg, dev, args.seed)
+    set_vlm_gates(torch, model)
+    batch = device_batch(torch, np, cfg, dev, args.seed, seq=seq)
+    launches, recomputes = per_train_step(cfg, kernel)
 
     def grads(c, backend):
         for p in model.parameters():
@@ -1750,22 +1836,26 @@ def lm_grad_check(torch, np, arch, kernel, args, dev) -> dict:
         return {k: p.grad for k, p in model.named_parameters()}
 
     def rel(g, want):
-        return {k: float((g[k] - w).abs().max()) / float(w.abs().max())
-                for k, w in want.items()}
+        out = {}
+        for k, w in want.items():
+            w = w.to(dev)
+            out[k] = float((g[k] - w).abs().max()) / float(w.abs().max())
+        return out
 
     lm_reset_launches()
-    k32 = grads(cfg32, "auto")
+    g32 = {k: g.cpu() for k, g in grads(cfg32, "torch").items()}
     n = train_counts()
-    g32 = grads(cfg32, "torch")
+    k32 = grads(cfg32, "auto")
     m = train_counts()
-    check(m[kernel] == n[kernel] == 2 * TRAIN_GRAD_LAYERS
-          and n[f"{kernel}/backward"] == TRAIN_GRAD_LAYERS
-          and m[f"{kernel}/backward"] == 2 * TRAIN_GRAD_LAYERS,
+    check(n[kernel] == 0 and m[kernel] == launches
+          and n[f"{kernel}/backward"] == recomputes
+          and m[f"{kernel}/backward"] == 2 * recomputes,
           f"{arch} gradient check: the kernel path launched {kernel} "
-          f"{n[kernel]} times (forward and recompute), the plain path none; "
-          f"{n[f'{kernel}/backward']} and "
-          f"{m[f'{kernel}/backward'] - n[f'{kernel}/backward']} backward "
-          f"recomputes")
+          f"{m[kernel]} times (derived {launches}: forward and remat "
+          f"recompute), the plain path {n[kernel]}; "
+          f"{m[f'{kernel}/backward'] - n[f'{kernel}/backward']} and "
+          f"{n[f'{kernel}/backward']} backward recomputes (derived "
+          f"{recomputes})")
     dead = [k for k, g in k32.items() if not bool((g != 0).any())]
     check(not dead, f"{arch} float32 kernel-path gradients: none all zero "
           f"({dead[:5]})")
@@ -1786,8 +1876,10 @@ def lm_grad_check(torch, np, arch, kernel, args, dev) -> dict:
           f"{BF16_VS_PLAIN} x the bf16 plain path's (floor "
           f"{BF16_GRAD_FLOOR}); worst {worst16} {k16[worst16]:.3e} against "
           f"{p16[worst16]:.3e}")
-    rep = {"layers": TRAIN_GRAD_LAYERS, "f32_worst": r32[worst32],
-           "f32_worst_tensor": worst32,
+    rep = {"layers": cfg.num_layers, "launches": m[kernel],
+           "backward_recomputes": m[f"{kernel}/backward"]
+           - n[f"{kernel}/backward"],
+           "f32_worst": r32[worst32], "f32_worst_tensor": worst32,
            "f32_median": float(np.median(list(r32.values()))),
            "bf16_worst_ratio": ratio[worst16],
            "bf16_worst_ratio_tensor": worst16,
@@ -1797,14 +1889,17 @@ def lm_grad_check(torch, np, arch, kernel, args, dev) -> dict:
            "bf16_kernel_median": float(np.median(list(k16.values()))),
            "bf16_plain_median": float(np.median(list(p16.values())))}
     print(f"{arch} gradient check: {json.dumps(rep)}")
+    for p in model.parameters():
+        p.grad = None
     del model, g32
     torch.cuda.empty_cache()
     return rep
 
 
 def smoke_train_card_vs_cpu(torch, np, arch, dev) -> dict:
-    """Phase 13: one float32 train step of a SMOKE model on the card and on
-    the CPU from the same params and batch."""
+    """Phases 13 and 18: one float32 train step of a SMOKE model on the card
+    and on the CPU from the same params (the vlm gates ``VLM_GATES``) and
+    batch."""
     from repro_torch.configs import base as CB
     from repro_torch.data import pipeline as DP
     from repro_torch.launch import steps as ST
@@ -1817,8 +1912,9 @@ def smoke_train_card_vs_cpu(torch, np, arch, dev) -> dict:
     b = DP.make_pipeline(cfg, seq_len=64, global_batch=4).batch_at(0)
     out = {}
     for where in ("cpu", dev):
-        model = M.init(cfg, seed=0, device="cpu").to(where)
-        model.requires_grad_(True)
+        model = M.init(cfg, seed=0, device="cpu")
+        set_vlm_gates(torch, model)
+        model = model.to(where).requires_grad_(True)
         state = OPT.init_state(dict(model.named_parameters()), hp)
         _, _, m = ST.make_train_step(cfg, hp)(
             model, state, {k: torch.from_numpy(v).to(where)
@@ -1835,6 +1931,7 @@ def smoke_train_card_vs_cpu(torch, np, arch, dev) -> dict:
 def train_phases(torch, np, args, dev, report) -> dict:
     """Phase 13; returns, per LM kernel, what its row adds."""
     import tempfile
+    from repro_torch.configs import base as CB
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
 
@@ -1855,15 +1952,17 @@ def train_phases(torch, np, args, dev, report) -> dict:
     out = {"card_vs_cpu": {a: smoke_train_card_vs_cpu(torch, np, a, dev)
                            for a in ("llama3.2-1b", "mamba2-130m")}}
     out["grad_check"] = {
-        k: lm_grad_check(torch, np, a, k, args, dev)
+        k: lm_grad_check(torch, np, dataclasses.replace(
+            CB.get_config(a), num_layers=TRAIN_GRAD_LAYERS), k, args, dev)
         for a, k in (("llama3.2-1b", "flash_attention"),
                      ("mamba2-130m", "ssd_scan"))}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
         out["train"] = {
-            "flash_attention": lm_train(torch, np, "llama3.2-1b",
+            "flash_attention": lm_train(torch, np,
+                                        CB.get_config("llama3.2-1b"),
                                         "flash_attention", args, dev),
-            "ssd_scan": lm_train(torch, np, "mamba2-130m", "ssd_scan", args,
-                                 dev, ckpt_dir=d)}
+            "ssd_scan": lm_train(torch, np, CB.get_config("mamba2-130m"),
+                                 "ssd_scan", args, dev, ckpt_dir=d)}
     report["lm_train"] = out
     return {k: {"train_launches": r["launches"],
                 "train_launches_per_step": r["launches_per_step"],
@@ -1892,14 +1991,6 @@ VLM_GATES = (0.5, -0.3)
 # a float32 SMOKE forward or decode step, card against CPU: max |diff| <=
 # this x max |CPU logit|
 RTOL_SMOKE_CARD_VS_CPU = 1e-5
-
-
-def flash_per_prefill(cfg) -> int:
-    """Flash launches of one prefill, from the config: one per causal
-    self-attention layer (the transformer's blocks, the Whisper decoder's);
-    none for the hybrid, whose layers all have a window (plain local
-    attention), or for the ssm."""
-    return 0 if cfg.family in ("hybrid", "ssm") else cfg.num_layers
 
 
 def set_vlm_gates(torch, model) -> None:
@@ -1992,7 +2083,7 @@ def family_prefill(torch, np, arch, layers, seq, args, dev) -> dict:
            "param_count": cfg.param_count(),
            "init_s": time.perf_counter() - t0}
     batch = ST.prefill_batch(cfg, LM_BATCH, seq, seed=args.seed, device=dev)
-    want = flash_per_prefill(cfg)
+    want = kernel_layers(cfg)    # flash launches of one prefill
     pv = L.padded_vocab(cfg.vocab_size)
     if want:
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2186,7 +2277,7 @@ def mesh_train(torch, np, arch, kernel, steps, mesh, args, dev,
     from repro_torch.train.trainer import Trainer, TrainConfig
 
     cfg = CB.get_config(arch)
-    per_step = cfg.num_layers * (2 if cfg.remat else 1)
+    per_step = per_train_step(cfg, kernel)[0]
     runs = {}
     for name, m in (("none", None), ("mesh", mesh)):
         torch.cuda.empty_cache()
@@ -2765,7 +2856,8 @@ def dryrun_pair(torch, arch, kernel, kind, mesh, seed, measured_ms) -> dict:
     del spec
     torch.cuda.empty_cache()
 
-    per = cfg.num_layers * (2 if kind == "train" and cfg.remat else 1)
+    per = (per_train_step(cfg, kernel)[0] if kind == "train"
+           else kernel_layers(cfg, kernel))
     bound_ms_ = 1e3 * rl.step_time_lower_bound
     rep = {"trace_s": trace_s, "traced_flops": ts.flops,
            "real_flops": rs.flops, "traced_hbm_bytes": ts.hbm_bytes,
@@ -2799,7 +2891,8 @@ def dryrun_child(in_path, out_path) -> int:
     """Phase 16, in a process of its own (its fake process group cannot
     share a process with phase 15's NCCL group): (a) and (b) on a fake
     (1, 1) ``cuda`` mesh, then (c) two production cells on a fake (16, 16)
-    ``cuda`` mesh."""
+    ``cuda`` mesh, then (d) phase 18's train configurations chosen from
+    their traces on the (1, 1) mesh (:func:`choose_train_cut`)."""
     import tempfile
     import torch
     sys.path.insert(0, str(SRC))
@@ -2849,6 +2942,11 @@ def dryrun_child(in_path, out_path) -> int:
                       f"{arch} {shape}: {hs['collective_bytes']:.6e} "
                       f"collective bytes per device, at most "
                       f"{DECODE_32K_MAX_COLLECTIVE_BYTES:.0e}")
+    # (d) phase 18's configurations, chosen from their traces on a (1, 1)
+    # mesh (again: (c)'s mesh replaced the group) before the card runs any
+    mesh = make_fake_mesh((1, 1), ("data", "model"), device="cuda")
+    out["family_train"] = {arch: choose_train_cut(torch, arch, seq, mesh)
+                           for arch, seq in FAMILY_TRAIN}
     out["wall_s"] = time.perf_counter() - t0
     pathlib.Path(out_path).write_text(json.dumps(out))
     return 0
@@ -2885,13 +2983,202 @@ def dryrun_phase(torch, args, report) -> dict:
             for k in ("flash_attention", "ssd_scan")}
 
 
+# ---------------------------------------------------------------------------
+# training the remaining families (phase 18)
+# ---------------------------------------------------------------------------
+
+# (arch, tokens per sequence) of phase 18; Whisper's decoder context is 448
+FAMILY_TRAIN = (("dbrx-132b", LM_SEQ), ("llama-3.2-vision-90b", LM_SEQ),
+                ("whisper-tiny", 448), ("recurrentgemma-2b", LM_SEQ))
+# the most a phase-18 step may be predicted to hold: its arguments (params,
+# Adam moments, batch) and the peak of its temporaries; 90% of the card's
+# 80 GB
+TRAIN_BUDGET_BYTES = 72e9
+# bytes a parameter holds in a train step by the moments' dtype: float32
+# param and gradient and two moments; a cut over budget on these alone is
+# not traced
+STATE_BYTES = {"float32": 16, "bfloat16": 12}
+
+
+def train_cut(full, depth):
+    """``full`` at ``depth`` layers, every width as published. A vlm cut
+    keeps one cross block after each group of at most ``depth`` self
+    blocks (a ``cross_attn_every`` above the depth would leave none)."""
+    if depth == full.num_layers:
+        return full
+    if full.family == "vlm":
+        return dataclasses.replace(
+            full, num_layers=depth,
+            cross_attn_every=min(full.cross_attn_every, depth))
+    return dataclasses.replace(full, num_layers=depth)
+
+
+def train_hparams(steps, state_dtype):
+    """The trainer's own default ``OptHParams`` for ``steps`` steps, with
+    the Adam moments in ``state_dtype``."""
+    from repro_torch.train import optimizer as OPT
+    return OPT.OptHParams(warmup_steps=10, decay_steps=max(steps, 2),
+                          state_dtype=state_dtype)
+
+
+def choose_train_cut(torch, arch, seq, mesh) -> dict:
+    """Phase 18's configuration of ``arch`` on (4, ``seq``) tokens, chosen
+    from the dry-run's prediction, never by trial on the card: from the
+    published depth down, float32 Adam moments before bfloat16, the first
+    cut whose train step (``launch.steps.build_cell`` on ``mesh`` under
+    ``FakeTensorMode``, ``dryrun.count_step``, ``dryrun.local_bytes``)
+    holds at most TRAIN_BUDGET_BYTES of arguments and peak temporaries.
+    Returns that cut, its prediction (bytes, roofline bound, flash nodes)
+    and every candidate traced (the deeper ones whose params, gradients
+    and moments alone exceed the budget are counted, not traced)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+
+    full = CB.get_config(arch)
+    shape = CB.ShapeConfig(f"phase18_{arch}", seq, LM_BATCH, "train")
+    tried, untraced = [], 0
+    for depth in range(full.num_layers, 0, -1):
+        cfg = train_cut(full, depth)
+        for sd, per_param in STATE_BYTES.items():
+            if cfg.param_count() * per_param > TRAIN_BUDGET_BYTES:
+                untraced += 1
+                continue
+            cand = {"depth": depth, "state_dtype": sd}
+            tried.append(cand)
+            t0 = time.perf_counter()
+            with FakeTensorMode():
+                spec = ST.build_cell(cfg, shape, mesh,
+                                     hp=train_hparams(2, sd))
+                counter = DR.count_step(spec, mesh)
+                args_bytes = DR.local_bytes(spec.args)
+            del spec
+            total = args_bytes + counter.peak_bytes
+            cand.update(predicted_gb=total / 1e9,
+                        trace_s=time.perf_counter() - t0)
+            if total > TRAIN_BUDGET_BYTES:
+                continue
+            ts = counter.summary
+            rl = RL.Roofline(
+                arch=arch, shape=shape.name, mesh="1x1", n_devices=1,
+                hlo_flops_per_dev=ts.flops, hlo_bytes_per_dev=ts.hbm_bytes,
+                collective_bytes_per_dev=ts.collective_bytes,
+                model_flops_global=RL.model_flops(cfg, shape),
+                per_device_memory=float(total))
+            rec = {"arch": arch, "seq": seq, "depth": depth,
+                   "published_depth": full.num_layers,
+                   "cross_attn_every": cfg.cross_attn_every,
+                   "state_dtype": sd, "params": cfg.param_count(),
+                   "args_bytes": args_bytes, "temp_bytes": counter.peak_bytes,
+                   "predicted_bytes": total,
+                   "bound_ms": 1e3 * rl.step_time_lower_bound,
+                   "bottleneck": rl.bottleneck, "flops": ts.flops,
+                   "hbm_bytes": ts.hbm_bytes,
+                   "flash_nodes": counter.kernel_nodes("flash_attention"),
+                   "tried": tried, "untraced_over_budget": untraced}
+            print(f"{arch} train on (4, {seq}): {json.dumps(rec)}")
+            return rec
+    raise SmokeFailure(f"{arch}: no cut's train step is predicted within "
+                       f"{TRAIN_BUDGET_BYTES / 1e9:.0f} GB ({tried})")
+
+
+def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
+    """Phase 18, one family at the dry-run's configuration ``pred``: (a) a
+    float32 SMOKE train step on the card against the CPU; (b) where it
+    launches the flash kernel, the gradient check against the plain path;
+    (c) ``Trainer.run`` with launches, recomputes, peak memory and step
+    time held against what was derived and predicted before it, and one
+    traced step."""
+    from repro_torch.configs import base as CB
+
+    cfg = train_cut(CB.get_config(arch), pred["depth"])
+    launches, recomputes = per_train_step(cfg)
+    check(pred["flash_nodes"] == launches,
+          f"{arch}: {pred['flash_nodes']} flash nodes in the traced train "
+          f"step, as derived from the config ({launches})")
+    print(f"{arch} predicted before its run: {cfg.num_layers} of "
+          f"{pred['published_depth']} layers, {cfg.param_count() / 1e9:.3f} "
+          f"G params, {pred['state_dtype']} Adam moments, "
+          f"{pred['predicted_bytes'] / 1e9:.3f} GB (arguments "
+          f"{pred['args_bytes'] / 1e9:.3f}, temporaries "
+          f"{pred['temp_bytes'] / 1e9:.3f}), roofline bound "
+          f"{pred['bound_ms']:.1f} ms ({pred['bottleneck']}), {launches} "
+          f"flash launches and {recomputes} backward recomputes a step")
+    rep = {"prediction": pred,
+           "card_vs_cpu": smoke_train_card_vs_cpu(torch, np, arch, dev)}
+    if launches:
+        rep["grad_check"] = lm_grad_check(torch, np, cfg, "flash_attention",
+                                          args, dev, seq=seq)
+    rep["train"] = tr = lm_train(
+        torch, np, cfg, "flash_attention", args, dev, seq=seq,
+        hp=train_hparams(args.train_steps, pred["state_dtype"]), pred=pred)
+    spans = tr["trace"]["spans_device_ms"]
+    want = (["FlashAttentionBackward"] if launches else []) + (
+        ["moe/route"] if cfg.family == "moe" else []) + (
+        ["rglru/scan", "attention/local"] if cfg.family == "hybrid" else [])
+    check(all(spans.get(k, 0) > 0 for k in want),
+          f"{arch} traced train step: device ms of "
+          f"{ {k: spans.get(k) for k in want} } of "
+          f"{tr['trace']['device_busy_ms']} busy, idle share "
+          f"{tr['trace']['device_idle_share']}")
+    return rep
+
+
+def family_train_phase(torch, np, args, dev, report) -> dict:
+    """Phase 18; returns, per ``flash_attention/<arch>`` row of phase 14,
+    what its train step adds."""
+    t0 = time.perf_counter()
+    preds = report["dryrun"]["family_train"]
+    out, rows, reduced = {}, {}, []
+    for arch, seq in FAMILY_TRAIN:
+        pred = preds[arch]
+        why = (f"predicted {pred['predicted_bytes'] / 1e9:.3f} GB of the "
+               f"{TRAIN_BUDGET_BYTES / 1e9:.0f} GB budget; the candidates "
+               f"before it predicted {pred['tried'][:-1]}, and "
+               f"{pred['untraced_over_budget']} deeper ones over it on "
+               f"their params, gradients and moments alone")
+        if pred["depth"] < pred["published_depth"]:
+            reduced.append({"arch": arch, "cut": f"depth "
+                            f"{pred['published_depth']} -> {pred['depth']}"
+                            + (f", cross_attn_every {pred['cross_attn_every']}"
+                               if pred["cross_attn_every"] else ""),
+                            "predicted_gb": pred["predicted_bytes"] / 1e9,
+                            "reason": why})
+        if pred["state_dtype"] != "float32":
+            reduced.append({"arch": arch, "cut": "bfloat16 Adam moments",
+                            "predicted_gb": pred["predicted_bytes"] / 1e9,
+                            "reason": why})
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[arch] = r = family_train(torch, np, arch, seq, pred, args, dev)
+        r["wall_s"] = time.perf_counter() - t1
+        t = r["train"]
+        if t["launches"]:
+            rows[f"flash_attention/{arch}"] = {
+                "train_launches": t["launches"],
+                "train_launches_per_step": t["launches_per_step"],
+                "train_backward_recomputes_per_step":
+                    t["backward_recomputes_per_step"],
+                "train_step_ms": t["step_ms"]}
+    for r in reduced:
+        print(f"reduced: {json.dumps(r)}")
+    out["reduced"] = reduced
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 18 (training the remaining families): {out['wall_s']:.1f} "
+          f"s")
+    report["family_train"] = out
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--epochs", type=int, default=150)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train-steps", type=int, default=10,
-                    help="Trainer.run steps per model in phase 13")
+                    help="Trainer.run steps per model in phases 13 and 18")
     ap.add_argument("--out", default=None,
                     help="also write the result lines to this JSON file")
     ap.add_argument("--dryrun-child", nargs=2, metavar=("IN", "OUT"),
@@ -3357,7 +3644,8 @@ def main(argv=None) -> int:
     kernels += lm_rows
 
     # -- 14. the remaining families --------------------------------------------
-    kernels += family_phases(torch, np, args, dev, report)
+    family_rows = family_phases(torch, np, args, dev, report)
+    kernels += family_rows
 
     # -- 15. the distributed layer ---------------------------------------------
     per_kernel = mesh_phase(torch, np, args, dev, report)
@@ -3368,6 +3656,11 @@ def main(argv=None) -> int:
     per_kernel = dryrun_phase(torch, args, report)
     for row in lm_rows:
         row.update(per_kernel[row["name"]])
+
+    # -- 18. training the remaining families --------------------------------
+    per_row = family_train_phase(torch, np, args, dev, report)
+    for row in family_rows:
+        row.update(per_row.get(row["name"], {}))
 
     if args.out:
         out = pathlib.Path(args.out)

@@ -209,9 +209,11 @@ class DryrunSpec:
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-               seed=None) -> DryrunSpec:
+               seed=None, hp: OPT.OptHParams = None) -> DryrunSpec:
     """The step and its arguments for one (arch x shape) cell on ``mesh``
-    (a ``DeviceMesh``; tensors on its device type).
+    (a ``DeviceMesh``; tensors on its device type). A train cell's
+    optimizer takes ``hp``, by default :func:`make_opt_hparams` (whose
+    ``state_dtype`` sets the Adam moments' bytes).
 
     With ``seed`` None every tensor is fake (built under the active
     ``FakeTensorMode``, or a new one): the dry-run's trace. With a seed the
@@ -235,7 +237,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             return SH.distribute_tree(tensors, mesh, pl), pl
 
         if shape.kind == "train":
-            hp = make_opt_hparams(cfg)
+            hp = hp or make_opt_hparams(cfg)
             model.requires_grad_(True)
             opt = OPT.init_state(dict(model.named_parameters()), hp)
             opt_axes = OPT.state_axes(axes)

@@ -525,17 +525,37 @@ class MLPParams(nn.Module):
             dense_init_(w, generator)
 
 
+class _ReferenceSilu(torch.autograd.Function):
+    """``x * s`` with ``s = 1 / (1 + exp(-x))``, each op in x's dtype; the
+    backward is the reference's derivative in its rounding order (the
+    logistic's ``s * (1 - s)``, then ``g * s + (g * x) * that``), not
+    autograd's through the reciprocal, which rounds a bfloat16 gradient
+    differently in most elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x):
     """SiLU. On the card ``F.silu`` (one rounding to x's dtype), and for
     fake tensors (:func:`card_route`). On the CPU, the model's plain path,
-    the reference's rounding order:
+    the reference's rounding order (:class:`_ReferenceSilu`):
     ``jax.nn.silu`` is ``x * sigmoid(x)``, and XLA computes a bfloat16
     sigmoid as ``1 / (1 + exp(-x))`` rounding after every op, so each op
     here runs in x's dtype (in bfloat16 the two orders round many elements
-    differently; in float32 they agree to rounding)."""
+    differently; in float32 they agree to rounding), and so does the
+    gradient."""
     if card_route(x):
         return F.silu(x)
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    return _ReferenceSilu.apply(x)
 
 
 def gelu_tanh(x):

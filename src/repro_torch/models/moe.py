@@ -18,9 +18,10 @@ reference's sites then reshard the slots to expert (or ``mlp``)
 parallelism for the FFN. ``partition_mode`` picks the parameters' axes
 (``MoEParams.AXES``) as the reference's ``moe_init`` does.
 
-Routing follows the reference term for term: the router logits in the
-activations' dtype, then float32; softmax gates; the top k (the lower
-expert first on equal gates, as ``jax.lax.top_k``); capacity
+The routing runs inside the profiler range ``moe/route`` (free when no
+profiler runs). Routing follows the reference term for term: the router
+logits in the activations' dtype, then float32; softmax gates; the top k
+(the lower expert first on equal gates, as ``jax.lax.top_k``); capacity
 ``max(1, int(S * k / E * capacity_factor))`` per expert and sequence,
 assigned in order of the flattened (S * k) choices, the rest dropped.
 """
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import (WHOLE, constrain,
                                                is_dtensor, shard_local)
@@ -191,7 +193,8 @@ def moe_apply(p, x, cfg):
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = capacity(cfg, S)
     e_ax = "expert" if partition_mode(E) == "expert" else None
-    aux, flat_e, pos_in_e, keep, w_flat = route(p, x, cfg)
+    with record_function("moe/route"):
+        aux, flat_e, pos_in_e, keep, w_flat = route(p, x, cfg)
     mesh = is_dtensor(x)
 
     # --- dispatch into (G, E, C, D): batch-parallel, experts whole, then

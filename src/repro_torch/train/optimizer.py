@@ -21,7 +21,10 @@ module per layer, so :func:`decays` counts that axis back in.
 
 Unlike the reference, :func:`apply_updates` updates the parameter and
 moment tensors in place (the trainer's 1.2B-parameter state would
-otherwise be held twice on the card) and returns the same dicts.
+otherwise be held twice on the card) and returns the same dicts. A large
+tensor is updated a piece at a time (:data:`UPDATE_PIECE`), so that the
+update's float32 temporaries stay small, as XLA's fused update keeps
+them.
 
 Under a mesh the parameters, gradients and moments are ``DTensor``s of the
 same placements (``distributed.sharding``): :func:`global_norm` sums each
@@ -104,6 +107,24 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+# elements of a parameter updated at a time: the update's float32
+# temporaries (about six of this size) stay near 1.6 GB however large the
+# parameter (one expert weight of dbrx-132b is 1.06 G elements); each
+# element's arithmetic is the same whatever the piece
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(*tensors):
+    """The tensors cut alike into flat pieces of at most
+    :data:`UPDATE_PIECE` elements (views, so an in-place update of a piece
+    updates the tensor); whole where they are small or one is not
+    contiguous."""
+    if tensors[0].numel() <= UPDATE_PIECE \
+            or not all(t.is_contiguous() for t in tensors):
+        return [tensors]
+    return zip(*(t.view(-1).split(UPDATE_PIECE) for t in tensors))
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: dict,
@@ -123,16 +144,18 @@ def apply_updates(params: Dict[str, torch.Tensor],
                                        device=step.device), step32)
     for name, p_full in params.items():
         # a DTensor's shards update on their own rank, element by element
-        p, m, v = local(p_full), local(state["m"][name]), \
-            local(state["v"][name])
-        g = local(grads[name]).float() * scale
-        m32 = hp.b1 * m.float() + (1 - hp.b1) * g
-        v32 = hp.b2 * v.float() + (1 - hp.b2) * torch.square(g)
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + hp.eps)
-        if decays(name, p_full):  # decoupled decay, the reference's rule
-            delta = delta + hp.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
+        decay = decays(name, p_full)
+        for p, m, v, g in _pieces(local(p_full), local(state["m"][name]),
+                                  local(state["v"][name]),
+                                  local(grads[name])):
+            g = g.float() * scale
+            m32 = hp.b1 * m.float() + (1 - hp.b1) * g
+            v32 = hp.b2 * v.float() + (1 - hp.b2) * torch.square(g)
+            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + hp.eps)
+            if decay:  # decoupled decay, the reference's rule
+                delta = delta + hp.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m32)
+            v.copy_(v32)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
