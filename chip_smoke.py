@@ -74,7 +74,25 @@ seed 0) on the card, then
  12. the paper's baselines on the paper grid's split (20% held out, seed
      0): ``MLPredictModel(epochs=300, seed=0)`` fitted on the card and on
      the CPU, held-out MAPE per target device within 3 points of each
-     other; Paleo and Habitat on the host, their MAPE printed.
+     other; Paleo and Habitat on the host, their MAPE printed;
+ 19. (after phase 12) the frozen reference fit path
+     (``repro_torch.core.reference``) on ``benchmarks/bench_fit.py``'s
+     split (25% held out, seed 0) and full-mode config (60 trees, 300
+     epochs), cut to anchor T4 (3 of 12 pairs): (a) ``Profet.fit`` on the
+     card, warm, against ``fit_profet_reference`` on the card, both times
+     and their ratio printed, the vectorized fit's held-out cross MAPE at
+     most 3.0 points above its reference's; (b) for pair (T4, V100) the
+     grower's 60 trees walked beside ``ReferenceForest``'s (same bootstrap
+     weights) from the root: every split equal or an exact SSE tie
+     (rational arithmetic), node values within 1e-12; the fused
+     single-forest kernel on the oracle's own trees (packed from its node
+     lists) within 1e-12 of the recursive host walk on the 260 training
+     and 86 held-out rows, 4 counted launches and no plain call; (c) a
+     linear + 5-tree reference fit of all 12 pairs on the card and on the
+     CPU: no bank, phase 1's requests served through ``LatencyService``
+     per group (no wave banked, no forest launch: the recursive forests
+     walk on the host), the card's answers equal to the CPU's bit for bit.
+     Its wall time is printed.
 
 The LM serving path, at the full published widths and depths, random
 float32 weights from ``--seed`` cast to bfloat16 as the prefill step's:
@@ -1182,6 +1200,299 @@ def baselines_phase(np, card) -> dict:
           f"{json.dumps(paleo)}; Habitat {json.dumps(habitat)}")
     return {"mlpredict": ml, "paleo": paleo, "habitat": habitat,
             "n_test": len(test)}
+
+
+# ---------------------------------------------------------------------------
+# the frozen reference fit path (phase 19)
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_fit.py's one-sided band: the vectorized fit's held-out
+# cross MAPE may be at most this many points above its reference's
+MAPE_PARITY_PTS = 3.0
+# phase 19 (a)'s cut: one anchor (3 of the paper grid's 12 pairs), as the
+# recursive forest takes ~10 s of host time a pair
+REFERENCE_ANCHORS = ("T4",)
+# phase 19 (b): the pair whose forest is grown both ways, and the bar of
+# tests/test_fit_path.py for predictions of equal trees
+ORACLE_PAIR = ("T4", "V100")
+ORACLE_RTOL = ORACLE_ATOL = 1e-12
+
+
+def cross_mape(np, profet, ds, test) -> float:
+    """Mean phase-1 MAPE over every trained pair on the held-out cases
+    (``benchmarks/bench_fit.py``'s ``_cross_mape``)."""
+    from repro_torch.core.ensemble import mape
+    scores = []
+    X_by_anchor = {}
+    for (ga, gt) in sorted(profet.cross):
+        if ga not in X_by_anchor:
+            X_by_anchor[ga] = profet.feature_matrix(
+                [ds.profile(ga, c) for c in test], test)
+        y_true = np.array([ds.latency(gt, c) for c in test])
+        scores.append(mape(y_true, profet.predict_cross_matrix(
+            ga, gt, X_by_anchor[ga])))
+    return float(np.mean(scores))
+
+
+def timed_s(torch, fn):
+    """(result, host seconds of ``fn`` up to a synchronised card)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def exact_sse(w, y):
+    """The weighted SSE of one node's rows in rational arithmetic: each
+    float64 weight and target taken exactly, nothing rounded."""
+    from fractions import Fraction
+    w = [Fraction(float(v)) for v in w]
+    y = [Fraction(float(v)) for v in y]
+    sw = sum(w)
+    if not sw:
+        return Fraction(0)
+    swy = sum(a * b for a, b in zip(w, y))
+    return sum(a * b * b for a, b in zip(w, y)) - swy * swy / sw
+
+
+def tie_walk(np, f, oracle_f, W, X, y) -> dict:
+    """Walk each tree of the packed forest ``f`` beside the recursive
+    oracle's tree of the same bootstrap plan ``W``, from the root, each
+    node with the rows its own tree sends there. Where the two nodes hold
+    the same in-bag rows (``W > 0``), their values are compared, and their
+    splits must be equal or an exact tie: the same in-bag rows to each
+    side, or two partitions whose SSEs are equal in rational arithmetic
+    (the last-ulp ties of ``core.reference``'s docstring). The walk goes
+    on below a split that keeps the in-bag rows together and stops below
+    one that sends them apart. Counts are returned; ``mismatched`` counts
+    everything else (a leaf beside a split, a split that is not a tie)."""
+    out = {"compared": 0, "equal": 0, "ties_same_rows": 0, "ties": 0,
+           "mismatched": 0, "value_max_rel": 0.0}
+    for t in range(f.n_trees):
+        tree, w = oracle_f.trees_[t], W[t]
+        stack = [(0, 0, np.arange(len(y)), np.arange(len(y)))]
+        while stack:
+            a, b, ra, rb = stack.pop()
+            nb = tree[b]
+            out["compared"] += 1
+            out["value_max_rel"] = max(out["value_max_rel"], float(
+                abs(f.value[t, a] - nb.value) / abs(nb.value)))
+            fa = int(f.feat[t, a])
+            if (fa < 0) != (nb.feature < 0):
+                out["mismatched"] += 1
+                continue
+            if fa < 0:
+                continue
+            sides_a = X[ra, fa] <= f.thr[t, a]
+            sides_b = X[rb, nb.feature] <= nb.threshold
+            la, ra_ = ra[sides_a], ra[~sides_a]
+            lb, rb_ = rb[sides_b], rb[~sides_b]
+            if (fa, float(f.thr[t, a])) == (nb.feature, nb.threshold):
+                out["equal"] += 1
+            elif np.array_equal(la[w[la] > 0], lb[w[lb] > 0]):
+                out["ties_same_rows"] += 1
+            else:
+                if (exact_sse(w[la], y[la]) + exact_sse(w[ra_], y[ra_])
+                        == exact_sse(w[lb], y[lb])
+                        + exact_sse(w[rb_], y[rb_])):
+                    out["ties"] += 1
+                else:
+                    out["mismatched"] += 1
+                continue
+            stack += [(f.left[t, a], nb.left, la, lb),
+                      (f.right[t, a], nb.right, ra_, rb_)]
+    return out
+
+
+def pack_node_lists(torch, trees, dev) -> tuple:
+    """A recursive forest's node lists as the ``(T, N)`` arrays the forest
+    kernels walk (node ``i`` of a tree in column ``i``; the columns past a
+    tree's last node are leaves) on ``dev``, and the forest's depth."""
+    import numpy as np
+    T, N = len(trees), max(len(t) for t in trees)
+    feat = np.full((T, N), -1, np.int32)
+    thr, value = np.zeros((T, N)), np.zeros((T, N))
+    left, right = np.zeros((T, N), np.int32), np.zeros((T, N), np.int32)
+    depth = 0
+    for t, tree in enumerate(trees):
+        for i, nd in enumerate(tree):
+            feat[t, i], thr[t, i], value[t, i] = nd.feature, nd.threshold, \
+                nd.value
+            left[t, i], right[t, i] = max(nd.left, 0), max(nd.right, 0)
+        stack = [(0, 0)]
+        while stack:
+            i, d = stack.pop()
+            depth = max(depth, d)
+            if tree[i].feature >= 0:
+                stack += [(tree[i].left, d + 1), (tree[i].right, d + 1)]
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (feat, thr, left, right, value)) + (depth,)
+
+
+def reference_phase(torch, np, reqs, card, dev) -> dict:
+    """Phase 19: the port's fit path, its single-forest kernel and its
+    per-group serving path against the frozen reference fit path
+    (``repro_torch.core.reference``)."""
+    from repro_torch.api.oracle import LatencyOracle
+    from repro_torch.core import reference, workloads
+    from repro_torch.core.predictor import Profet, ProfetConfig
+    from repro_torch.core.regressors import (RandomForestRegressor,
+                                             bootstrap_plan)
+    from repro_torch.kernels import forest_eval
+    from repro_torch.serve import LatencyService
+
+    t_phase = time.perf_counter()
+    ds = workloads.generate()
+    train, test = workloads.split_cases(ds.cases, test_frac=0.25, seed=0)
+    out = {}
+
+    # (a) the vectorized fit against its baseline, bench_fit's full mode
+    cfg = ProfetConfig(seed=0)
+    def fit_new():
+        return Profet(cfg, device=dev).fit(ds, train,
+                                           anchors=REFERENCE_ANCHORS)
+
+    fit_new()                                  # untimed: warm
+    new, new_s = timed_s(torch, fit_new)
+    ref, ref_s = timed_s(torch, lambda: reference.fit_profet_reference(
+        ds, cfg, train, anchors=REFERENCE_ANCHORS, device=dev))
+    mape_new, mape_ref = (cross_mape(np, p, ds, test) for p in (new, ref))
+    out["fit"] = {"anchors": list(REFERENCE_ANCHORS),
+                  "pairs": len(new.cross), "n_train": len(train),
+                  "n_test": len(test), "n_trees": cfg.n_trees,
+                  "dnn_epochs": cfg.dnn_epochs, "vectorized_s": new_s,
+                  "reference_s": ref_s, "reference_over_vectorized":
+                  ref_s / new_s, "mape_vectorized": mape_new,
+                  "mape_reference": mape_ref,
+                  "mape_delta_pts": mape_new - mape_ref}
+    print(f"phase 19 (a), cut: anchor {REFERENCE_ANCHORS[0]} only, "
+          f"{len(new.cross)} of 12 pairs; {len(train)} train / {len(test)} "
+          f"held-out cases, {cfg.n_trees} trees, {cfg.dnn_epochs} epochs: "
+          f"{json.dumps(out['fit'])}; card: {card}")
+    check(sorted(new.cross) == sorted(ref.cross) and len(new.cross) == 3,
+          "both fits trained the same 3 pairs")
+    check(mape_new - mape_ref <= MAPE_PARITY_PTS,
+          f"vectorized fit's held-out cross MAPE {mape_new:.3f}% at most "
+          f"{MAPE_PARITY_PTS} points above its reference's {mape_ref:.3f}% "
+          f"(fit {new_s:.2f} s against {ref_s:.2f} s, "
+          f"{ref_s / new_s:.2f}x; card: {card})")
+
+    # (b) the grower, and the fused single-forest kernel, against the
+    # recursive oracle, which never reads packed arrays
+    ga, gt = ORACLE_PAIR
+    X = new.feature_matrix([ds.profile(ga, c) for c in train], train)
+    Xt = new.feature_matrix([ds.profile(ga, c) for c in test], test)
+    y = np.array([ds.latency(gt, c) for c in train])
+    rf = RandomForestRegressor(n_estimators=cfg.n_trees, seed=cfg.seed,
+                               device=dev).fit(X, y)
+    t0 = time.perf_counter()
+    oracle_f = reference.ReferenceForest(n_estimators=cfg.n_trees,
+                                         seed=cfg.seed).fit(X, y)
+    grow_s = time.perf_counter() - t0
+    f = rf.forest_
+    W, _ = bootstrap_plan(cfg.seed, cfg.n_trees, len(y))
+    walk = tie_walk(np, f, oracle_f, W, X, y)
+    nodes = [int(c) for c in f.n_nodes]
+    walk.update(
+        trees=f.n_trees, nodes=sum(nodes),
+        trees_equal_node_counts=sum(
+            a == len(t) for a, t in zip(nodes, oracle_f.trees_)),
+        trees_equal_split_multisets=sum(
+            sorted((int(f.feat[t, i]), float(f.thr[t, i]))
+                   for i in range(nodes[t]) if f.feat[t, i] >= 0) == ms
+            for t, ms in enumerate(oracle_f.split_multiset())),
+        recursive_grow_s=grow_s)
+    print(f"phase 19 (b), pair {ORACLE_PAIR}, {len(y)} rows, "
+          f"{f.n_trees} trees: {json.dumps(walk)}")
+    check(walk["mismatched"] == 0 and walk["value_max_rel"] <= ORACLE_RTOL,
+          f"the grower's {f.n_trees} trees equal the recursive oracle's "
+          f"split for split up to exact SSE ties: {walk['equal']} equal "
+          f"splits, {walk['ties_same_rows']} ties sending the same "
+          f"in-bag rows each way, {walk['ties']} exact ties (rational "
+          f"arithmetic) sending them apart (their subtrees not compared), "
+          f"none else; node values within {walk['value_max_rel']:.2e} "
+          f"relative")
+    # the kernel on the oracle's own trees, packed from its node lists,
+    # against its recursive walk of them; and on the grower's trees, where
+    # the ties route out-of-bag and held-out rows their own way
+    packed = pack_node_lists(torch, oracle_f.trees_, dev)
+    forest_eval.reset_launches()
+    on_oracle = {k: forest_eval.predict(
+        torch.from_numpy(Z).to(dev), *packed[:5], depth=packed[5]
+    ).cpu().numpy() for k, Z in (("train", X), ("held_out", Xt))}
+    on_grower = {"train": rf.predict(X), "held_out": rf.predict(Xt)}
+    launches, plain = dict(forest_eval.launches), dict(forest_eval.plain_calls)
+    check(launches["predict"] == 4 and sum(launches.values()) == 4
+          and not any(plain.values()),
+          f"the fused single-forest kernel answered all 4 calls "
+          f"({launches['predict']} launches, no other route, "
+          f"{sum(plain.values())} plain calls; oracle's trees packed "
+          f"{tuple(packed[0].shape)}, depth {packed[5]})")
+    errs, grower_errs = {}, {}
+    for name, Z in (("train", X), ("held_out", Xt)):
+        want = oracle_f.predict(Z)
+        errs[name] = float(np.max(np.abs(on_oracle[name] - want)))
+        grower_errs[name] = float(np.max(np.abs(on_grower[name] - want)))
+        check(np.allclose(on_oracle[name], want, rtol=ORACLE_RTOL,
+                          atol=ORACLE_ATOL),
+              f"{name}: the kernel's {len(Z)} predictions over the oracle's "
+              f"trees within rtol {ORACLE_RTOL}, atol {ORACLE_ATOL} of its "
+              f"recursive host walk (max abs err {errs[name]}); over the "
+              f"grower's trees {grower_errs[name]} from it (ties)")
+    out["oracle"] = dict(walk, pair=list(ORACLE_PAIR), depth=int(f.depth),
+                         launches=launches, max_abs_err=errs,
+                         grower_kernel_vs_recursive_max_abs=grower_errs)
+
+    # (c) an ensemble the bank cannot stack serves per group, on the card
+    # as on the CPU
+    cfg_c = ProfetConfig(members=("linear", "forest"), n_trees=5, seed=0)
+    oracles = {d: LatencyOracle(reference.fit_profet_reference(
+        ds, cfg_c, device=d), ds) for d in (dev, "cpu")}
+    card_o = oracles[dev]
+    check(card_o.bank is None and card_o.bank_error is None
+          and oracles["cpu"].bank is None,
+          f"reference fit of {len(card_o.pairs())} pairs: no bank and no "
+          "bank error, on the card and on the CPU")
+    svc = LatencyService(card_o, max_wave=64)
+    check(not svc.stats.degraded, "per-group service warm-up")
+    batches = []
+    execute = card_o.execute
+
+    def recording_execute(*a, **kw):
+        batches.append(execute(*a, **kw))
+        return batches[-1]
+
+    card_o.execute = recording_execute
+    forest_eval.reset_launches()
+    t0 = time.perf_counter()
+    lat = served(np, svc, reqs)
+    serve_s = time.perf_counter() - t0
+    card_o.execute = execute
+    s = svc.stats
+    launches, plain = dict(forest_eval.launches), dict(forest_eval.plain_calls)
+    lat_cpu = served(np, LatencyService(oracles["cpu"], max_wave=64), reqs)
+    check(len(lat) == len(reqs) == s.requests and s.errors == 0
+          and np.isfinite(lat).all(),
+          f"{s.requests} of {len(reqs)} requests answered, {s.errors} "
+          f"errors, in {s.waves} waves ({serve_s:.2f} s)")
+    check(len(batches) == s.waves and not any(x.banked for x in batches)
+          and s.fused_calls == sum(x.fused_calls for x in batches)
+          and not s.degraded,
+          f"no wave banked: {s.waves} waves answered by {s.fused_calls} "
+          f"fused ensemble calls, one per (anchor, target) group")
+    check(not any(launches.values()) and not any(plain.values()),
+          f"no forest kernel and no plain version ran: the recursive "
+          f"forests walk on the host ({launches}, {plain})")
+    check(np.array_equal(lat, lat_cpu),
+          "the card's answers equal the CPU oracle's bit for bit")
+    out["per_group"] = {"pairs": len(card_o.pairs()),
+                        "requests": s.requests, "waves": s.waves,
+                        "banked_waves": sum(x.banked for x in batches),
+                        "group_calls": s.fused_calls, "serve_s": serve_s}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19 (the reference fit path): {out['wall_s']:.1f} s; "
+          f"{json.dumps(out['per_group'])}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3633,6 +3944,12 @@ def main(argv=None) -> int:
     report["calibration"] = calibration_phase(torch, np, oracle, waves,
                                               args, card)
     report["baselines"] = baselines_phase(np, card)
+
+    # -- 19. the frozen reference fit path -----------------------------------
+    report["reference"] = reference_phase(torch, np, reqs, card, dev)
+    next(k for k in kernels if k["name"] == "predict")[
+        "recursive_walk_max_abs_err"] = max(
+            report["reference"]["oracle"]["max_abs_err"].values())
 
     # -- 6.-10. the LM serving path ------------------------------------------
     lm_rows = lm_phases(torch, np, args, dev, report)

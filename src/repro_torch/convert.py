@@ -22,6 +22,8 @@ A pair carries only the members the config names.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -87,15 +89,25 @@ def profet_from_numpy(state: dict, device="cuda") -> Profet:
 
 def profet_to_numpy(profet: Profet) -> dict:
     """The inverse of :func:`profet_from_numpy` for a model of this
-    package (tensors copied back to the host)."""
+    package (tensors copied back to the host). A recursive
+    ``core.reference`` forest is written as ``{"node_lists": ...}``, which
+    :func:`profet_from_numpy` cannot rebuild."""
     pairs = []
     for (anchor, target), ens in sorted(profet.cross.items()):
         entry = {"anchor": anchor, "target": target}
         for name, model in ens.models.items():
             if name == "linear":
                 entry["linear"] = np.array(model.coef_)
-            elif name == "forest":
+            elif name == "forest" and isinstance(model,
+                                                 RandomForestRegressor):
                 entry["forest"] = model.forest_.to_state()
+            elif name == "forest":
+                # a recursive forest (``core.reference``) has no packed
+                # arrays: its node lists go in as builtins, and
+                # ``profet_from_numpy`` (like ``api.load``) refuses them
+                entry["forest"] = {"node_lists": [
+                    [dataclasses.astuple(n) for n in tree]
+                    for tree in model.trees_]}
             else:
                 mu, sd, ys = model._stats
                 entry["dnn"] = {

@@ -430,6 +430,25 @@ def _as_f32(a, dev: torch.device) -> torch.Tensor:
     return a.to(dev, torch.float32)
 
 
+def adam_update(flat, grads, m_state, v_state, t: int, lr32: float) -> None:
+    """One Adam step in place, written out as the reference writes it
+    (``b1=0.9, b2=0.999, eps=1e-8``): first the moments ``m``, ``v``, then
+    their bias-corrected ``mh``, ``vh`` (the float32 ``1 - b ** t``), then
+    ``p - lr*mh/(sqrt(vh)+eps)``."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    t32 = np.float32(t)
+    c1 = float(np.float32(1) - np.float32(b1) ** t32)
+    c2 = float(np.float32(1) - np.float32(b2) ** t32)
+    with torch.no_grad():
+        for j, (p, g) in enumerate(zip(flat, grads)):
+            m_ = b1 * m_state[j] + (1 - b1) * g
+            v_ = b2 * v_state[j] + (1 - b2) * g * g
+            m_state[j], v_state[j] = m_, v_
+            mh = m_ / c1
+            vh = v_ / c2
+            p.copy_(p - lr32 * mh / (torch.sqrt(vh) + eps))
+
+
 def fit_dnn_multi(X: np.ndarray, Y: np.ndarray, *, epochs: int = 400,
                   batch_size: int = 128, lr: float = 1e-3, seed: int = 0,
                   device="cuda", init_params=None) -> List["DNNRegressor"]:
@@ -440,8 +459,7 @@ def fit_dnn_multi(X: np.ndarray, Y: np.ndarray, *, epochs: int = 400,
     ``[{"w", "b"}, ...]``, broadcast to all K) replaces the seeded init,
     so a test can hand in the reference's initial weights.
 
-    Adam is written out as the reference writes it (``b1=0.9, b2=0.999,
-    eps=1e-8``; bias-corrected ``mh``, ``vh``; ``p - lr*mh/(sqrt(vh)+eps)``)
+    Adam is written out as the reference writes it (:func:`adam_update`)
     rather than taken from ``torch.optim.Adam``, which places ``eps``
     differently."""
     dev = resolve_device(device)
@@ -464,7 +482,6 @@ def fit_dnn_multi(X: np.ndarray, Y: np.ndarray, *, epochs: int = 400,
     v_state = [torch.zeros_like(p) for p in flat]
     batches = torch.from_numpy(epoch_batches(np.random.default_rng(seed), n,
                                              batch_size, epochs)).to(dev)
-    b1, b2, eps = 0.9, 0.999, 1e-8
     lr32 = float(np.float32(lr))
     for step in range(batches.shape[0]):
         idx = batches[step]
@@ -477,17 +494,7 @@ def fit_dnn_multi(X: np.ndarray, Y: np.ndarray, *, epochs: int = 400,
         # heads share no parameter, so the gradient of the summed loss is
         # each head's own gradient
         grads = torch.autograd.grad((mape + rmse).sum(), flat)
-        t = np.float32(step + 1)
-        c1 = float(np.float32(1) - np.float32(b1) ** t)
-        c2 = float(np.float32(1) - np.float32(b2) ** t)
-        with torch.no_grad():
-            for j, (p, g) in enumerate(zip(flat, grads)):
-                m_ = b1 * m_state[j] + (1 - b1) * g
-                v_ = b2 * v_state[j] + (1 - b2) * g * g
-                m_state[j], v_state[j] = m_, v_
-                mh = m_ / c1
-                vh = v_ / c2
-                p.copy_(p - lr32 * mh / (torch.sqrt(vh) + eps))
+        adam_update(flat, grads, m_state, v_state, step + 1, lr32)
 
     models = []
     for k in range(K):

@@ -2,6 +2,7 @@
 one ``gloo`` rank started by ``repro_torch.launch.mesh.spawn`` (spawned
 processes import it from this directory) and reads and writes its inputs
 and results as pickles, rank 0 writing."""
+import contextlib
 import dataclasses
 import pickle
 
@@ -10,9 +11,10 @@ import torch
 import torch.distributed as dist
 
 
-def _cfg(arch, dtype):
+def _cfg(arch, dtype, seq_parallel=False):
     from repro_torch.configs import base as CB
-    return dataclasses.replace(CB.get_config(arch, smoke=True), dtype=dtype)
+    return dataclasses.replace(CB.get_config(arch, smoke=True), dtype=dtype,
+                               seq_parallel=seq_parallel)
 
 
 def load_params(trainer, named):
@@ -58,7 +60,7 @@ def _train(job) -> dict:
     from repro_torch.train.optimizer import OptHParams
     from repro_torch.train.trainer import Trainer, TrainConfig
     torch.set_num_threads(1)
-    cfg = _cfg(job["arch"], job["dtype"])
+    cfg = _cfg(job["arch"], job["dtype"], job.get("seq_parallel", False))
     mesh = make_mesh(job["mesh"][0], job["mesh"][1], device="cpu")
     tc = TrainConfig(seq_len=job["seq"], global_batch=job["batch"],
                      num_steps=job["steps"], log_every=0, ckpt_every=0,
@@ -73,13 +75,36 @@ def _train(job) -> dict:
         out["restored"] = tr.maybe_restore()
         out["resume_step"] = tr.step
         out["after_restore"] = gathered(tr)
-    for _ in range(job["steps"]):
-        tr.train_one()
+    with _seq_shard_layouts() as layouts:
+        for _ in range(job["steps"]):
+            tr.train_one()
     if job.get("ckpt_dir"):
         tr.save()
     out.update(history=tr.history, state=gathered(tr),
-               world=dist.get_world_size())
+               world=dist.get_world_size(), seq_shard_layouts=layouts)
     return out
+
+
+@contextlib.contextmanager
+def _seq_shard_layouts():
+    """Collect the placements the blocks' ``seq_shard`` constraints give
+    (the sequence-parallel residual stream; none unless ``seq_parallel``)
+    while the block is open."""
+    from repro_torch.models import transformer as TM
+    seen = set()
+    real = TM.constrain
+
+    def recording(x, *logical):
+        y = real(x, *logical)
+        if "seq_shard" in logical and hasattr(y, "placements"):
+            seen.add(tuple(y.placements))
+        return y
+
+    TM.constrain = recording
+    try:
+        yield seen
+    finally:
+        TM.constrain = real
 
 
 def _gather_to_rank0(t):
@@ -450,7 +475,8 @@ from repro.train.optimizer import OptHParams
 from repro.train.trainer import Trainer, TrainConfig
 job = pickle.load(open(sys.argv[1], "rb"))
 cfg = dataclasses.replace(CB.get_config(job["arch"], smoke=True),
-                          dtype=job["dtype"])
+                          dtype=job["dtype"],
+                          seq_parallel=job.get("seq_parallel", False))
 # Auto axes: jax 0.9.0's jax.make_mesh builds Explicit ones, on which the
 # reference's trainer stops at its embedding gather
 mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2),
@@ -484,13 +510,14 @@ def _run(argv, cwd):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
-def reference_train(repo, tmp, arch, seq, steps=3, batch=4, dtype="float32"):
+def reference_train(repo, tmp, arch, seq, steps=3, batch=4, dtype="float32",
+                    seq_parallel=False):
     """The reference ``Trainer`` on the Auto-axis (2, 2) mesh of 4 forced
     host devices: its initial and final parameter trees and history."""
     job, out = tmp / f"jax_{arch}.pkl", tmp / f"jax_{arch}_out.pkl"
     with open(job, "wb") as f:
         pickle.dump(dict(arch=arch, dtype=dtype, seq=seq, batch=batch,
-                         steps=steps, hp=HP), f)
+                         steps=steps, hp=HP, seq_parallel=seq_parallel), f)
     _run([_JAX_TRAIN, str(job), str(out)], repo)
     with open(out, "rb") as f:
         return pickle.load(f)
@@ -598,7 +625,7 @@ def port_names(arch, dtype, tree):
 
 
 def one_device(arch, dtype, params, seq, steps, batch=4, ckpt_dir=None,
-               restore=False):
+               restore=False, seq_parallel=False):
     """The port's ``mesh=None`` trainer from ``params``: its history and
     gathered state after ``steps`` steps (after a restore first, when
     asked)."""
@@ -606,7 +633,8 @@ def one_device(arch, dtype, params, seq, steps, batch=4, ckpt_dir=None,
     from repro_torch.train.trainer import Trainer, TrainConfig
     tc = TrainConfig(seq_len=seq, global_batch=batch, num_steps=steps,
                      log_every=0, ckpt_every=0, ckpt_dir=ckpt_dir)
-    tr = Trainer(_cfg(arch, dtype), tc, hp=OptHParams(**HP), device="cpu")
+    tr = Trainer(_cfg(arch, dtype, seq_parallel), tc, hp=OptHParams(**HP),
+                 device="cpu")
     load_params(tr, params)
     out = {}
     if restore:

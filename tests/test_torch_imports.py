@@ -21,7 +21,8 @@ def _modules():
 def test_module_list_covers_every_package():
     """The modules the import checks walk include every package of the
     port, the training packages, every model family, the distributed
-    layer and the dry-run's analysis among them."""
+    layer, the dry-run's analysis and the frozen reference fit path among
+    them."""
     mods = _modules()
     for m in ("repro_torch.data.pipeline", "repro_torch.train.optimizer",
               "repro_torch.train.checkpoint", "repro_torch.train.trainer",
@@ -34,7 +35,7 @@ def test_module_list_covers_every_package():
               "repro_torch.distributed.compression",
               "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
               "repro_torch.launch.dryrun", "repro_torch.analysis.opcount",
-              "repro_torch.analysis.roofline"):
+              "repro_torch.analysis.roofline", "repro_torch.core.reference"):
         assert m in mods, m
 
 
