@@ -27,7 +27,6 @@ import dataclasses
 from typing import Any, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -35,6 +34,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.distributed.sharding import full, is_dtensor
 from repro_torch.models import model as M
+from repro_torch.spans import span
 from repro_torch.train import optimizer as OPT
 
 BIG_MODEL_PARAMS = 1.5e11  # above this, store Adam moments in bf16
@@ -69,10 +69,14 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
     parameter's placements before the optimizer, and the metrics come back
     whole on every rank.
 
-    Each slice's forward and the optimizer are profiler ranges
-    (``train_step/forward``, ``train_step/optimizer``; the backward runs on
-    autograd's own thread, so a range around it would hold none of its
-    work); a range costs nothing when no profiler runs."""
+    Each slice's forward and backward and the optimizer are spans
+    (``repro_torch.spans``: ``train_step/forward``, ``train_step/backward``,
+    ``train_step/optimizer``). The backward's work runs on autograd's own
+    thread, so its device time sits under its autograd nodes, not under
+    ``train_step/backward``; that span holds the host's wall time until
+    ``loss.backward()`` returns, which places the device's idle gaps of
+    the backward in time. A span costs what ``record_function`` costs when
+    no profiler runs."""
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
         for p in params.values():
@@ -81,9 +85,10 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
         loss_sum, mets = 0.0, []
         for i in range(microbatches):
             one = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            with record_function("train_step/forward"):
+            with span("train_step/forward"):
                 loss, met = M.loss_fn(model, cfg, one)
-            loss.backward()   # .grad accumulates: g_1 + g_2 + ...
+            with span("train_step/backward"):
+                loss.backward()   # .grad accumulates: g_1 + g_2 + ...
             loss_sum = loss_sum + loss.detach()
             mets.append({k: v.detach() for k, v in met.items()})
         for p in params.values():
@@ -93,7 +98,7 @@ def make_train_step(cfg: ModelConfig, hp: OPT.OptHParams,
             for p in params.values():
                 p.grad.div_(microbatches)
         grads = {k: p.grad for k, p in params.items()}
-        with record_function("train_step/optimizer"):
+        with span("train_step/optimizer"):
             _, opt_state, opt_metrics = OPT.apply_updates(params, grads,
                                                           opt_state, hp)
         mets = [{k: full(v) for k, v in m.items()} for m in mets]

@@ -42,7 +42,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch._subclasses.fake_tensor import is_fake
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (WHOLE, all_reduce, constrain,
@@ -52,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
                                      _sdpa, reference_attention)
 from repro_torch.kernels.ref import repeat_kv as _repeat_kv
+from repro_torch.spans import span
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -317,7 +317,7 @@ def local_attention(q, k, v, window: int):
                                q, k, v)
     B, S, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
-    with record_function("attention/local"):
+    with span("attention/local"):
         k = _repeat_kv(k, H)
         v = _repeat_kv(v, H)
         if S <= window:

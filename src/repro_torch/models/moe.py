@@ -18,10 +18,12 @@ reference's sites then reshard the slots to expert (or ``mlp``)
 parallelism for the FFN. ``partition_mode`` picks the parameters' axes
 (``MoEParams.AXES``) as the reference's ``moe_init`` does.
 
-The routing runs inside the profiler range ``moe/route`` (free when no
-profiler runs). Routing follows the reference term for term: the router
-logits in the activations' dtype, then float32; softmax gates; the top k
-(the lower expert first on equal gates, as ``jax.lax.top_k``); capacity
+The routing runs inside the span ``moe/route`` (``repro_torch.spans``),
+and while a profiler records the forward counts its slots: ``moe/kept``,
+``moe/choices`` and ``moe/slots`` (:func:`count_slots`). Routing follows
+the reference term for term: the router logits in the activations'
+dtype, then float32; softmax gates; the top k (the lower expert first on
+equal gates, as ``jax.lax.top_k``); capacity
 ``max(1, int(S * k / E * capacity_factor))`` per expert and sequence,
 assigned in order of the flattened (S * k) choices, the rest dropped.
 """
@@ -30,8 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.distributed.sharding import (WHOLE, constrain,
                                                is_dtensor, shard_local)
 from repro_torch.models import layers as L
@@ -186,6 +188,21 @@ class Combine(torch.autograd.Function):
                                ctx.C), None, None)
 
 
+def count_slots(keep, E: int, C: int) -> None:
+    """The dispatch's counters, for the slot fill (kept / slots) and the
+    dropped share (1 - kept / choices): ``moe/kept`` (on the device),
+    ``moe/choices`` (G * S * k) and ``moe/slots`` (G * E * C), over this
+    rank's rows on a mesh. The forward alone counts: a block's remat
+    recompute runs inside the backward's graph task and is skipped."""
+    if torch._C._current_graph_task_id() != -1:
+        return
+    if is_dtensor(keep):
+        keep = keep.to_local()                            # (G, S*k)
+    spans.count("moe/kept", keep.sum())
+    spans.count("moe/choices", keep.numel())
+    spans.count("moe/slots", keep.shape[0] * E * C)
+
+
 def moe_apply(p, x, cfg):
     """x: (B, S, D). Returns (out, aux) where aux carries the load-balance
     and router-z losses (float32 scalars)."""
@@ -193,8 +210,10 @@ def moe_apply(p, x, cfg):
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = capacity(cfg, S)
     e_ax = "expert" if partition_mode(E) == "expert" else None
-    with record_function("moe/route"):
+    with spans.span("moe/route"):
         aux, flat_e, pos_in_e, keep, w_flat = route(p, x, cfg)
+    if spans.enabled():
+        count_slots(keep, E, C)
     mesh = is_dtensor(x)
 
     # --- dispatch into (G, E, C, D): batch-parallel, experts whole, then

@@ -32,12 +32,12 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.spans import span
 
 _C = 8.0  # RG-LRU sharpness constant (paper value)
 
@@ -213,7 +213,7 @@ def _rglru_out(p, h_in, cfg):
     xb = constrain(xb, "batch", "seq", "rglru_width")
     xb = _causal_conv(xb, p.conv_w.to(dtype), p.conv_b.to(dtype))
     a, gi = _rglru_gates(p, xb)
-    with record_function("rglru/scan"):
+    with span("rglru/scan"):
         h = _rglru_scan(a, gi).to(dtype)
     h = constrain(h, "batch", "seq", "rglru_width")
     out = (h * L.gelu_tanh(yb)) @ p.w_out.to(dtype)

@@ -31,7 +31,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import pipeline as data_pipeline
 from repro_torch.distributed import sharding as SH
@@ -120,15 +120,27 @@ class Trainer:
             axes, self.mesh, {k: v.shape for k, v in out.items()}))
 
     def train_one(self, batch=None) -> Dict[str, float]:
-        if batch is None:
-            batch = next(self.data)
-        t0 = time.time()
-        with SH.use_mesh(self.mesh):
+        """One optimizer step on ``batch`` (by default the data's next):
+        its metrics as floats and ``step_time_s``, the monotonic clock's
+        seconds from the batch's copy to the device to the metrics on the
+        host. The step is the span ``train_step`` over ``train_step/data``
+        (the batch from its source and to the device), the step function's
+        spans (``launch.steps.make_train_step``) and
+        ``train_step/readback`` (the metrics stacked and copied to the host
+        at once: the step's one wait for the device)."""
+        with spans.span("train_step"), SH.use_mesh(self.mesh):
+            with spans.span("train_step/data"):
+                if batch is None:
+                    batch = next(self.data)
+                t0 = time.perf_counter()
+                batch = self._device_batch(batch)
             _, self.opt_state, metrics = self._step_fn(
-                self.model, self.opt_state, self._device_batch(batch))
-        metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+                self.model, self.opt_state, batch)
+            with spans.span("train_step/readback"):
+                values = torch.stack(list(metrics.values())).tolist()
+        metrics = dict(zip(metrics, values))
         self.step += 1
-        dt = time.time() - t0
+        dt = time.perf_counter() - t0
         self.monitor.observe(self.step, dt)
         metrics["step_time_s"] = dt
         self.history.append({"step": self.step, **metrics})
