@@ -139,8 +139,9 @@ The LM training path, at full published width:
      synthetic stream, float32 params and Adam state, bf16 activations,
      remat: launches per step as derived from the code (one per block in
      the forward and one in the remat recompute: 32 flash, 48 SSD; one
-     backward recompute per block), every gradient after step 1 finite
-     and not all zero, every loss finite and the last 3 below the first 3;
+     backward recompute per block; one ``adamw_sumsq`` and one
+     ``adamw_update`` launch, the optimizer's), every gradient after step
+     1 finite and not all zero, every loss finite and the last 3 below the first 3;
      median step time, tokens/s, peak memory, and one traced step. The
      mamba2-130m run checkpoints at the midpoint: that checkpoint restores
      on the card and on the CPU bit for bit, and a fresh ``Trainer``
@@ -256,7 +257,8 @@ Training the remaining families, after phase 16, one model at a time:
      every gradient after step 1 finite and not all zero, every loss finite
      and the last 3 below the first 3, flash launches and backward
      recomputes per step as derived from the config (2 / 1, 4 / 2, 8 / 4,
-     0 / 0), the peak allocation over what was allocated before the
+     0 / 0), the optimizer's two kernels launched once each a step, the
+     peak allocation over what was allocated before the
      Trainer within 5% of the prediction, the median step at or above the
      roofline bound; step ms, tokens/s, peak GB, and one traced step
      (device ms of ``FlashAttentionBackward``, ``moe/route``,
@@ -264,6 +266,26 @@ Training the remaining families, after phase 16, one model at a time:
      Each cut goes into the report's ``reduced`` list with its predicted
      GB; the kernels' line adds the ``train_*`` keys to the
      ``flash_attention/<arch>`` rows. Its wall time is printed.
+
+The optimizer, after phase 13:
+
+ 20. the AdamW kernel (``csrc/adamw.cu``: the norm's sum of squares and the
+     update, one launch each over every tensor) at dbrx-132b-l1's largest
+     tensor, one whole expert weight (``blocks.0.ffn.wi``, 16 x 6,144 x
+     10,752 = 1.06 G elements) with bfloat16 moments, and at
+     mamba2-130m's whole parameter list (314 tensors, 129 M elements)
+     with float32 moments: p, m and v after one update equal to the plain
+     version's (``adamw.update_plain``, the eager chain, cut into
+     ``UPDATE_PIECE`` pieces) bit for bit, the norm the same bits on two
+     calls and within 1e-6 of the plain one; the norm and the update timed
+     together as the median of 5 CUDA-graph replays, beside their bound
+     (24 or 32 bytes an element at the HBM rate), the plain version's time
+     and ``torch._fused_adamw_``'s on the same parameters and gradients
+     (with float32 moments, the only ones it takes; the library's time,
+     never on the port's path). The kernels' line adds to each row the
+     optimizer's launches in the trainer's own run of that model
+     (``train_launches``, ``train_launches_per_step``: phase 13's
+     mamba2-130m, phase 18's dbrx-132b) and its step time.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -291,7 +313,7 @@ FP64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 LM_BATCH, LM_SEQ = 4, 2048
-KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan")
+KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan", "adamw")
 RTOL_CARD_VS_CPU = 1e-5
 # how much farther from the float32 plain run the bf16 run through a kernel
 # may end than the bf16 plain run
@@ -1516,16 +1538,19 @@ def median_ms(torch, fn, calls=5):
 
 
 def lm_launches() -> dict:
+    from repro_torch.kernels import adamw as aw_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
-    return {**fa_mod.launches, **ssd_mod.launches}
+    return {**fa_mod.launches, **ssd_mod.launches, **aw_mod.launches}
 
 
 def lm_reset_launches() -> None:
+    from repro_torch.kernels import adamw as aw_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     fa_mod.reset_launches()
     ssd_mod.reset_launches()
+    aw_mod.reset_launches()
 
 
 def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
@@ -2015,6 +2040,9 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
           f"{per_step}: {cfg.num_layers} blocks, forward and remat "
           f"recompute), {c1[f'{kernel}/backward']} backward recomputes "
           f"(derived {per_step_backward}), {c1[other]} {other}")
+    check(c1["adamw_sumsq"] == c1["adamw_update"] == 1,
+          f"{arch} train step 1: {c1['adamw_sumsq']} adamw_sumsq and "
+          f"{c1['adamw_update']} adamw_update launches (1 each)")
     bad = [k for k, p in tr.params.items()
            if p.grad is None or not bool(torch.isfinite(p.grad).all())
            or not bool((p.grad != 0).any())]
@@ -2041,6 +2069,10 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
           f"{arch} Trainer.run, {steps} steps: {counts[kernel]} {kernel} "
           f"launches, {counts[f'{kernel}/backward']} backward recomputes "
           f"({per_step} and {per_step_backward} a step)")
+    check(counts["adamw_sumsq"] == counts["adamw_update"] == steps,
+          f"{arch} Trainer.run, {steps} steps: {counts['adamw_sumsq']} "
+          f"adamw_sumsq and {counts['adamw_update']} adamw_update launches "
+          f"(1 each a step)")
     losses = [h["loss"] for h in tr.history]
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     check(all(np.isfinite(losses)) and last < first,
@@ -2065,6 +2097,8 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
                counts[f"{kernel}/backward"] // steps,
            "launches": counts[kernel],
            "backward_recomputes": counts[f"{kernel}/backward"],
+           "adamw_launches": {k: counts[k]
+                              for k in ("adamw_sumsq", "adamw_update")},
            "grad_norms": [h["grad_norm"] for h in tr.history]}
     if pred is not None:
         want = pred["predicted_bytes"]
@@ -2281,6 +2315,148 @@ def train_phases(torch, np, args, dev, report) -> dict:
                     r["backward_recomputes_per_step"],
                 "train_step_ms": r["step_ms"]}
             for k, r in out["train"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the optimizer (phase 20)
+# ---------------------------------------------------------------------------
+
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def adamw_shapes(case) -> list:
+    """(name, shape, decays) of phase 20's tensors."""
+    from repro_torch.configs import base as CB
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as OPT
+    if case == "dbrx-132b-l1 expert weight":
+        cfg = dataclasses.replace(CB.get_config("dbrx-132b"), num_layers=1)
+        keep = ("blocks.0.ffn.wi",)
+    else:
+        cfg, keep = CB.get_config("mamba2-130m"), None
+    model = M.build(cfg, device="meta")
+    return [(k, tuple(p.shape), OPT.decays(k, p))
+            for k, p in model.named_parameters() if keep is None or k in keep]
+
+
+def adamw_case(torch, case, state_dtype, dev, iters) -> dict:
+    """One row of phase 20 at ``case``'s tensors."""
+    from repro_torch.kernels import adamw as aw_mod
+    shapes = adamw_shapes(case)
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def rand(shape, scale=1.0, square=False, dtype=torch.float32):
+        t = torch.randn(shape, generator=gen, device=dev).mul_(scale)
+        return (t.mul_(t) if square else t).to(dtype)
+
+    ps = [rand(s) for _, s, _ in shapes]
+    gs = [rand(s, 1e-3) for _, s, _ in shapes]
+    ms = [rand(s, 1e-4, dtype=state_dtype) for _, s, _ in shapes]
+    vs = [rand(s, 1e-3, True, state_dtype) for _, s, _ in shapes]
+    flags = [d for _, _, d in shapes]
+    reps = [1] * len(shapes)
+    scal = [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (0.5, 3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    n = sum(p.numel() for p in ps)
+
+    # the update: kernel against the plain version, from the same state
+    copies = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    aw_mod.reset_launches()
+    aw_mod.update_op(ps, gs, ms, vs, flags, *scal, *ADAMW_HP.values())
+    check(aw_mod.launches["adamw_update"] == 1,
+          f"adamw {case}: one update launch for {len(ps)} tensors")
+    aw_mod.update_plain(copies[0], gs, copies[1], copies[2], flags, *scal,
+                        *ADAMW_HP.values())
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, want in zip((ps, ms, vs), copies):
+        for a, b in zip(got, want):
+            err = max(err, float((a.float() - b.float()).abs().max()))
+    check(err == 0.0, f"adamw {case} ({state_dtype}): p, m, v bit for bit "
+          f"the plain version's (max abs err {err})")
+    del copies
+
+    # the norm: fixed order, near the plain sum
+    first = aw_mod.sumsq_op(gs, reps)
+    second = aw_mod.sumsq_op(gs, reps)
+    plain = aw_mod.sumsq_plain(gs, reps)
+    rel = abs(float(first) - float(plain)) / float(plain)
+    check(torch.equal(first, second) and rel <= 1e-6,
+          f"adamw {case}: the norm's sum the same bits on two calls, "
+          f"{rel:.2e} from the plain one")
+
+    def kernel():
+        aw_mod.sumsq_op(gs, reps)
+        aw_mod.update_op(ps, gs, ms, vs, flags, *scal, *ADAMW_HP.values())
+
+    def plain_step():
+        aw_mod.sumsq_plain(gs, reps)
+        aw_mod.update_plain(ps, gs, ms, vs, flags, *scal, *ADAMW_HP.values())
+
+    ms_kernel = time_kernel_ms(torch, kernel, iters=iters, reps=5)
+    ms_plain = time_plain_ms(torch, plain_step, iters=3)
+    ub, uo = aw_mod.update_work(ps, gs, ms, vs, flags)
+    sb, so = aw_mod.sumsq_work(gs)
+    b_ms, b_by = bound_ms(ub + sb, uo + so, ops_per_s=FP32_OPS_PER_S)
+    del ms, vs
+    torch.cuda.empty_cache()
+    lib_ms, lib_note = None, "float32 moments (it takes one dtype)"
+    m32 = [torch.zeros_like(p) for p in ps]
+    v32 = [torch.zeros_like(p) for p in ps]
+    steps = [torch.ones((), device=dev) for _ in ps]
+    try:
+        ms_lib = time_plain_ms(torch, lambda: torch._fused_adamw_(
+            ps, gs, m32, v32, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
+            iters=5)
+        lib_ms = ms_lib
+    except RuntimeError as e:            # a comparator only
+        lib_note = f"not timed: {str(e).splitlines()[0]}"
+    row = {"name": "adamw", "case": case, "route": "cuda",
+           "source": "src/repro_torch/csrc/adamw.cu",
+           "replaces": "- (the reference's jnp update, fused by XLA)",
+           "tensors": len(ps), "elements": n,
+           "state_dtype": str(state_dtype).replace("torch.", ""),
+           "max_abs_err": err,
+           "norm_rel_err": rel, "ms": ms_kernel, "plain_ms": ms_plain,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "roofline": b_ms / ms_kernel, "library_ms": lib_ms,
+           "library": "torch._fused_adamw_, " + lib_note}
+    print(f"adamw ({case}): {json.dumps(row)} (bytes {ub + sb}, "
+          f"operations {uo + so})")
+    del ps, gs, m32, v32
+    torch.cuda.empty_cache()
+    return row
+
+
+def adamw_train_counts(report) -> dict:
+    """Per phase 20 row, the optimizer's launches in the trainer's own run
+    of that model (phase 13's mamba2-130m, phase 18's dbrx-132b)."""
+    runs = {"dbrx-132b-l1 expert weight":
+            report["family_train"]["dbrx-132b"]["train"],
+            "mamba2-130m parameters": report["lm_train"]["train"]["ssd_scan"]}
+    out = {}
+    for case, r in runs.items():
+        n = sum(r["adamw_launches"].values())
+        out[case] = {"train_launches": n,
+                     "train_launches_per_step": n // r["steps"],
+                     "train_launches_by_op": r["adamw_launches"],
+                     "train_step_ms": r["step_ms"]}
+    return out
+
+
+def adamw_phase(torch, dev, report) -> list:
+    """Phase 20; returns the AdamW kernel's rows."""
+    t0 = time.perf_counter()
+    rows = [adamw_case(torch, "dbrx-132b-l1 expert weight", torch.bfloat16,
+                       dev, iters=3),
+            adamw_case(torch, "mamba2-130m parameters", torch.float32, dev,
+                       iters=20)]
+    report["adamw"] = rows
+    print(f"phase 20 (the optimizer kernel): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
 
 
 # ---------------------------------------------------------------------------
@@ -3960,6 +4136,10 @@ def main(argv=None) -> int:
         row.update(per_kernel[row["name"]])
     kernels += lm_rows
 
+    # -- 20. the optimizer kernel ---------------------------------------------
+    adamw_rows = adamw_phase(torch, dev, report)
+    kernels += adamw_rows
+
     # -- 14. the remaining families --------------------------------------------
     family_rows = family_phases(torch, np, args, dev, report)
     kernels += family_rows
@@ -3978,6 +4158,9 @@ def main(argv=None) -> int:
     per_row = family_train_phase(torch, np, args, dev, report)
     for row in family_rows:
         row.update(per_row.get(row["name"], {}))
+    per_case = adamw_train_counts(report)
+    for row in adamw_rows:
+        row.update(per_case[row["case"]])
 
     if args.out:
         out = pathlib.Path(args.out)

@@ -18,11 +18,12 @@ What each op counts, per device:
   The ops DTensor runs on global-shape fake tensors to learn an output's
   shape (its sharding propagation) are not counted.
 - FLOPs: the matmul family (``mm``, ``addmm``, ``bmm``, ``baddbmm``,
-  convolutions) from ``torch.utils.flop_counter``'s formulas; the two
-  kernel ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``)
-  their modules' ``work(...)``; :data:`MOVES` (copies, casts, fills,
-  concatenation) none; every other op 1 per output element, as the
-  reference counts its elementwise and reduce ops.
+  convolutions) from ``torch.utils.flop_counter``'s formulas; the kernel
+  ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``,
+  ``repro_torch::adamw_sumsq``, ``repro_torch::adamw_update``) their
+  modules' work functions (:data:`KERNEL_WORK`); :data:`MOVES` (copies,
+  casts, fills, concatenation) none; every other op 1 per output element,
+  as the reference counts its elementwise and reduce ops.
 - HBM bytes: views and aliases (an op whose result aliases an input
   without writing it) and :data:`FREE` ops count 0; every other op reads
   each input and writes each output once, as eager torch does on the
@@ -58,14 +59,19 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
-# the LM kernels' registered ops: (bytes, operations) from their args
+# the kernels' registered ops: (bytes, operations) from their args
 KERNEL_WORK = {
     "repro_torch.flash_attention": lambda q, k, v: _fa.work(q, k),
     "repro_torch.ssd_scan": lambda X, Adt, Bc, Cc, chunk:
         _ssd.work(X, Bc, chunk),
+    "repro_torch.adamw_sumsq": lambda grads, replicas:
+        _aw.sumsq_work(grads),
+    "repro_torch.adamw_update": lambda params, grads, m, v, decays, *_:
+        _aw.update_work(params, grads, m, v, decays),
 }
 
 # ops that move or fill memory and compute nothing: bytes, no FLOPs

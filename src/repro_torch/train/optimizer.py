@@ -21,10 +21,21 @@ module per layer, so :func:`decays` counts that axis back in.
 
 Unlike the reference, :func:`apply_updates` updates the parameter and
 moment tensors in place (the trainer's 1.2B-parameter state would
-otherwise be held twice on the card) and returns the same dicts. A large
-tensor is updated a piece at a time (:data:`UPDATE_PIECE`), so that the
-update's float32 temporaries stay small, as XLA's fused update keeps
-them.
+otherwise be held twice on the card) and returns the same dicts.
+
+The norm and the update are the AdamW kernel's two registered ops
+(``kernels/adamw.py``: ``repro_torch::adamw_sumsq`` and
+``repro_torch::adamw_update``), each one call over every tensor: on the
+card two launches of the hand-written kernel, which keeps no float32
+temporaries and gives the eager update's parameters and moments bit for
+bit; on the CPU the kernel's plain version, the eager chain of
+elementwise ops per tensor, a large tensor a piece at a time
+(``adamw.UPDATE_PIECE``) so that its float32 temporaries stay small, as
+XLA's fused update keeps them. ``backend="torch"`` calls the plain
+version on any device. While a profiler records, the counters
+``optimizer/elements`` (every element updated, here) and
+``optimizer/kernel_elements`` (those a launch of the kernel updated)
+show which path a step took.
 
 Under a mesh the parameters, gradients and moments are ``DTensor``s of the
 same placements (``distributed.sharding``): :func:`global_norm` sums each
@@ -41,7 +52,9 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.distributed.sharding import is_dtensor, local, replicas
+from repro_torch.kernels import adamw as AW
 from repro_torch.models.model import stacked
 
 
@@ -96,66 +109,54 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return p.dim() + stacked(name) >= 2
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The L2 norm over every tensor. ``DTensor``s (on a mesh over the
-    whole process group): each rank sums its shards' squares, a shard held
-    by r ranks divided by r, and one all-reduce adds the ranks' sums."""
-    sq = sum(torch.sum(torch.square(local(g).float())) / replicas(g)
-             for g in tree.values())
+def global_norm(tree: Dict[str, torch.Tensor], *,
+                backend: str = "auto") -> torch.Tensor:
+    """The L2 norm over every tensor (the kernel's sum of squares on the
+    card, ``backend`` as :func:`apply_updates` takes it). ``DTensor``s (on
+    a mesh over the whole process group): each rank sums its shards'
+    squares, a shard held by r ranks divided by r, and one all-reduce adds
+    the ranks' sums."""
+    gs = [local(g) for g in tree.values()]
+    reps = [replicas(g) for g in tree.values()]
+    sumsq = AW.sumsq_op if AW.use_ops(gs[0], backend) else AW.sumsq_plain
+    sq = sumsq(gs, reps)
     if any(is_dtensor(g) for g in tree.values()):
         dist.all_reduce(sq)
     return torch.sqrt(sq)
 
 
-# elements of a parameter updated at a time: the update's float32
-# temporaries (about six of this size) stay near 1.6 GB however large the
-# parameter (one expert weight of dbrx-132b is 1.06 G elements); each
-# element's arithmetic is the same whatever the piece
-UPDATE_PIECE = 1 << 26
-
-
-def _pieces(*tensors):
-    """The tensors cut alike into flat pieces of at most
-    :data:`UPDATE_PIECE` elements (views, so an in-place update of a piece
-    updates the tensor); whole where they are small or one is not
-    contiguous."""
-    if tensors[0].numel() <= UPDATE_PIECE \
-            or not all(t.is_contiguous() for t in tensors):
-        return [tensors]
-    return zip(*(t.view(-1).split(UPDATE_PIECE) for t in tensors))
-
-
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: dict,
-                  hp: OptHParams):
+                  hp: OptHParams, *, backend: str = "auto"):
     """One AdamW step, in place. Returns (params, state, metrics) with
     metrics ``{"grad_norm", "lr"}`` as float32 0-d tensors (the norm
-    before clipping)."""
+    before clipping). ``backend``: ``"auto"`` calls the AdamW ops (the
+    kernel on the card, the eager version on the CPU), ``"cuda"`` the ops
+    on CUDA tensors only (raising for others), ``"torch"`` the eager
+    version."""
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, backend=backend)
     scale = torch.clamp(hp.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     step32 = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(hp.b1, dtype=torch.float32,
-                                       device=step.device), step32)
-    bc2 = 1.0 - torch.pow(torch.tensor(hp.b2, dtype=torch.float32,
-                                       device=step.device), step32)
-    for name, p_full in params.items():
-        # a DTensor's shards update on their own rank, element by element
-        decay = decays(name, p_full)
-        for p, m, v, g in _pieces(local(p_full), local(state["m"][name]),
-                                  local(state["v"][name]),
-                                  local(grads[name])):
-            g = g.float() * scale
-            m32 = hp.b1 * m.float() + (1 - hp.b1) * g
-            v32 = hp.b2 * v.float() + (1 - hp.b2) * torch.square(g)
-            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + hp.eps)
-            if decay:  # decoupled decay, the reference's rule
-                delta = delta + hp.weight_decay * p.float()
-            p.copy_(p.float() - lr * delta)
-            m.copy_(m32)
-            v.copy_(v32)
+    # the betas filled on the device: a host tensor copied there would make
+    # the host wait for the backward to finish before the update is queued
+    bc1 = 1.0 - torch.pow(torch.full((), hp.b1, dtype=torch.float32,
+                                     device=step.device), step32)
+    bc2 = 1.0 - torch.pow(torch.full((), hp.b2, dtype=torch.float32,
+                                     device=step.device), step32)
+    # a DTensor's shards update on their own rank, element by element
+    names = list(params)
+    ps = [local(params[k]) for k in names]
+    gs = [local(grads[k]) for k in names]
+    ms = [local(state["m"][k]) for k in names]
+    vs = [local(state["v"][k]) for k in names]
+    flags = [decays(k, params[k]) for k in names]
+    update = AW.update_op if AW.use_ops(ps[0], backend) else AW.update_plain
+    update(ps, gs, ms, vs, flags, scale, lr, bc1, bc2, hp.b1, hp.b2, hp.eps,
+           hp.weight_decay)
+    spans.count("optimizer/elements", sum(p.numel() for p in ps))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

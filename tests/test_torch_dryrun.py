@@ -150,6 +150,33 @@ def test_counter_counts_kernel_ops_as_their_work():
                                 "repro_torch.ssd_scan"}
 
 
+@pytest.mark.parametrize("state_dtype,per_element", [
+    (torch.float32, 32), (torch.bfloat16, 24)])
+def test_counter_counts_adamw_ops_as_their_work(state_dtype, per_element):
+    """The optimizer's two kernel ops: the norm reads each gradient once (4
+    B an element), the update reads p, g, m, v and writes p, m, v once (28
+    B with float32 moments, 20 with bfloat16)."""
+    rng = np.random.default_rng(3)
+    ps = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((64, 48), (5,))]
+    gs = [torch.ones_like(p) for p in ps]
+    ms = [torch.zeros_like(p, dtype=state_dtype) for p in ps]
+    vs = [torch.zeros_like(p, dtype=state_dtype) for p in ps]
+    one = torch.tensor(1.0)
+    with OpCounter() as c:
+        torch.ops.repro_torch.adamw_sumsq(gs, [1, 1])
+        torch.ops.repro_torch.adamw_update(ps, gs, ms, vs, [True, False],
+                                           one, one, one, one, 0.9, 0.95,
+                                           1e-8, 0.1)
+    n = 64 * 48 + 5
+    assert c.kernel_nodes("adamw_sumsq") == 1
+    assert c.kernel_nodes("adamw_update") == 1
+    assert set(c.summary.by_opcode) == {"repro_torch.adamw_sumsq",
+                                        "repro_torch.adamw_update"}
+    assert c.summary.hbm_bytes == per_element * n
+    assert c.summary.flops == 2 * n + 15 * n + 2 * 64 * 48
+
+
 # ---------------------------------------------------------------------------
 # the LM kernels' registered ops
 # ---------------------------------------------------------------------------
@@ -318,6 +345,8 @@ for arch, kinds in (("llama3.2-1b", ("train", "prefill", "decode")),
                "coll": c.summary.collective_bytes, "layers": cfg.num_layers,
                "flash": c.kernel_nodes("flash_attention"),
                "ssd": c.kernel_nodes("ssd_scan"), "temp": c.peak_bytes,
+               "adamw": [c.kernel_nodes("adamw_sumsq"),
+                         c.kernel_nodes("adamw_update")],
                "args": DR.local_bytes(spec.args)}
         if kind != "decode":   # the same cell for real on the same mesh
             real = ST.build_cell(cfg, shape, mesh, seed=0)
@@ -386,6 +415,15 @@ def test_kernel_nodes_per_layer(mesh_run, cell, flash, ssd_nodes):
     rec = mesh_run["cells"][cell]
     assert rec["flash"] == flash * rec["layers"]
     assert rec["ssd"] == ssd_nodes * rec["layers"]
+
+
+@pytest.mark.parametrize("cell,nodes", [
+    ("llama3.2-1b train", [1, 1]), ("llama3.2-1b prefill", [0, 0]),
+    ("llama3.2-1b decode", [0, 0])])
+def test_optimizer_kernel_nodes(mesh_run, cell, nodes):
+    """A train step's optimizer on the mesh is the AdamW kernel's norm and
+    update, one node each over every local shard; serving runs neither."""
+    assert mesh_run["cells"][cell]["adamw"] == nodes
 
 
 @pytest.mark.parametrize("cell", ["llama3.2-1b train", "llama3.2-1b prefill",

@@ -8,7 +8,7 @@
   float32 bars;
 - dbrx-132b with bfloat16 Adam moments (``OptHParams(state_dtype=
   "bfloat16")``, the card's choice) against the reference's step with the
-  same hparams, its update cut into pieces (``optimizer.UPDATE_PIECE``
+  same hparams, its update cut into pieces (``kernels.adamw.UPDATE_PIECE``
   made small); the piecewise update bit for bit the whole one;
 - the flash launches and backward recomputes a train step derives from
   the config (``chip_smoke.per_train_step``) against the calls of the
@@ -39,6 +39,7 @@ import test_torch_train_step as TS
 from repro_torch.configs import base as CB
 from repro_torch.convert import opt_state_to_numpy
 from repro_torch.data import pipeline as DP
+from repro_torch.kernels import adamw as AW
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import model as M
@@ -84,7 +85,7 @@ def test_vlm_cut_train_steps_match_reference(cut):
 @pytest.fixture
 def small_pieces(monkeypatch):
     """``apply_updates`` cuts every tensor above 257 elements into pieces."""
-    monkeypatch.setattr(OPT, "UPDATE_PIECE", 257)
+    monkeypatch.setattr(AW, "UPDATE_PIECE", 257)
 
 
 def test_dbrx_bfloat16_moments_match_reference(small_pieces):
@@ -136,10 +137,10 @@ def test_piecewise_update_is_the_whole_update_bit_for_bit(monkeypatch):
         for strided, pieces in ((False, 21), (True, 1)):
             whole = state(sd, strided)
             OPT.apply_updates(*whole, hp)
-            monkeypatch.setattr(OPT, "UPDATE_PIECE", 1000)
+            monkeypatch.setattr(AW, "UPDATE_PIECE", 1000)
             run = state(sd, strided)
-            assert len(list(OPT._pieces(run[0]["blocks.0.w"],
-                                        run[1]["blocks.0.w"]))) == pieces
+            assert len(list(AW.pieces(run[0]["blocks.0.w"],
+                                      run[1]["blocks.0.w"]))) == pieces
             OPT.apply_updates(*run, hp)
             monkeypatch.undo()
             for a, b in ((whole[0], run[0]), (whole[2]["m"], run[2]["m"]),

@@ -15,6 +15,12 @@ runs with ``--noconftest``:
 - A kernel launch on grad-requiring inputs outside the Function raises.
 - One train step of a SMOKE model in float32 on the card and on the CPU:
   loss and grad norm within 1e-4 relative.
+- The AdamW kernel (``kernels/adamw.py``): on given gradients and scale,
+  parameters and moments bit for bit the plain version's on the card, for
+  float32 and bfloat16 moments, decaying or not, at sizes 1 to 2^26 + 5,
+  mamba2-130m's 314 tensors and a mix of both; the norm the same bits on
+  every call and within 1e-6 of the plain one; ``apply_updates`` on CUDA
+  tensors never reaching the plain version; misfit inputs raising.
 """
 import dataclasses
 
@@ -22,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import spans
 from repro_torch.configs import base as CB
 from repro_torch.data import pipeline as DP
+from repro_torch.kernels import adamw as aw
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import reference_attention
@@ -121,3 +129,174 @@ def test_smoke_train_step_card_against_cpu(cuda, arch, S):
     for k in ("loss", "grad_norm"):
         assert abs(out["cuda"][k] - out["cpu"][k]) <= \
             1e-4 * abs(out["cpu"][k]), (k, out)
+
+
+# ---------------------------------------------------------------------------
+# the AdamW kernel
+# ---------------------------------------------------------------------------
+
+ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _mamba_shapes():
+    model = M.build(CB.get_config("mamba2-130m"), device="meta")
+    return [(tuple(p.shape), OPT.decays(k, p))
+            for k, p in model.named_parameters()]
+
+
+def _adamw_case(case):
+    if case == "mamba2-130m":
+        return _mamba_shapes()
+    if case == "mixed":
+        return [((2 ** 26 + 5,), True), ((3,), False)] + _mamba_shapes()[:40]
+    n, decay = case
+    return [((n,), decay)]
+
+
+def _adamw_tensors(shapes, state_dtype, device, seed=7):
+    """p, g, m, v lists: moments mid-run (v > 0), a few tensors offset by
+    one element from their storage's start so that the kernel's element
+    path runs too."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = [[], [], [], []]
+    for i, (shape, _) in enumerate(shapes):
+        shift = 1 if i % 7 == 3 else 0
+        n = int(np.prod(shape))
+        for j, (scale, sq) in enumerate(((1.0, False), (1.0, False),
+                                         (0.1, False), (0.01, True))):
+            base = torch.randn(n + shift, generator=gen, device=device)
+            t = base[shift:].view(shape) * scale
+            t = t * t if sq else t
+            if j >= 2:
+                t = t.to(state_dtype)
+            buf = torch.empty(n + shift, dtype=t.dtype, device=device)
+            view = buf[shift:].view(shape)
+            view.copy_(t)
+            out[j].append(view)
+    return out
+
+
+def _adamw_scalars(device):
+    return [torch.tensor(x, dtype=torch.float32, device=device)
+            for x in (0.75, 3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, True), (3, False), (4095, True),
+                                  (4095, False), (2 ** 26 + 5, True),
+                                  "mamba2-130m", "mixed"])
+def test_adamw_update_equals_plain_version_bit_for_bit(cuda, case,
+                                                       state_dtype):
+    shapes = _adamw_case(case)
+    flags = [d for _, d in shapes]
+    got = _adamw_tensors(shapes, state_dtype, cuda)
+    want = [[t.clone() for t in ts] for ts in got]
+    scalars = _adamw_scalars(cuda)
+    aw.reset_launches()
+    aw.update_op(*got, flags, *scalars, *ADAMW.values())
+    assert aw.launches["adamw_update"] == 1
+    aw.update_plain(*want, flags, *scalars, *ADAMW.values())
+    torch.cuda.synchronize()
+    for j in (0, 2, 3):
+        for a, b in zip(got[j], want[j]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["mamba2-130m", "mixed"])
+def test_adamw_norm_is_deterministic_and_near_plain(cuda, case):
+    shapes = _adamw_case(case)
+    gs = _adamw_tensors(shapes, torch.float32, cuda)[1]
+    reps = [1 + (i % 2) for i in range(len(gs))]
+    aw.reset_launches()
+    first = aw.sumsq_op(gs, reps)
+    again = [aw.sumsq_op(gs, reps) for _ in range(5)]
+    assert aw.launches["adamw_sumsq"] == 6
+    assert all(torch.equal(first, a) for a in again)
+    plain = aw.sumsq_plain(gs, reps)
+    assert abs(float(first) - float(plain)) <= 1e-6 * float(plain)
+    grads = {f"g{i}": g for i, g in enumerate(gs)}
+    kern = OPT.global_norm(grads)
+    eager = OPT.global_norm(grads, backend="torch")
+    assert abs(float(kern) - float(eager)) <= 1e-6 * float(eager)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_apply_updates_on_the_card_never_reaches_the_plain_version(
+        cuda, state_dtype, monkeypatch):
+    """Three steps through the kernel against three through the eager
+    version on the card, clipping off (scale 1 on both paths): the same
+    bits; the kernel's path launches 2 kernels a step and never calls the
+    plain versions."""
+    cfg = CB.get_config("mamba2-130m", smoke=True)
+    hp = OPT.OptHParams(warmup_steps=2, decay_steps=10, grad_clip=1e9,
+                        state_dtype=state_dtype)
+    runs = {}
+    for backend in ("torch", "auto"):
+        model = M.init(cfg, seed=0, device=cuda)
+        params = dict(model.named_parameters())
+        state = OPT.init_state(params, hp)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        if backend == "auto":
+            def refuse(*a, **k):
+                raise AssertionError("a CUDA tensor reached the plain "
+                                     "version")
+            monkeypatch.setattr(aw, "update_plain", refuse)
+            monkeypatch.setattr(aw, "sumsq_plain", refuse)
+            aw.reset_launches()
+        for _ in range(3):
+            grads = {k: torch.randn(p.shape, generator=gen, device=cuda)
+                     for k, p in params.items()}
+            OPT.apply_updates(params, grads, state, hp, backend=backend)
+        runs[backend] = (params, state)
+    assert aw.launches == {"adamw_sumsq": 3, "adamw_update": 3}
+    (p0, s0), (p1, s1) = runs["torch"], runs["auto"]
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+        assert torch.equal(s0["m"][k], s1["m"][k]), k
+        assert torch.equal(s0["v"][k], s1["v"][k]), k
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_adamw_kernel_elements_are_counted_at_its_launch(cuda, backend):
+    """``optimizer/kernel_elements`` counts what launches of the kernel
+    updated: every element through the ops on the card, none through the
+    plain version there."""
+    params = {"blocks.0.w": torch.randn((300, 70), device=cuda),
+              "final_norm": torch.randn(70, device=cuda)}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    hp = OPT.OptHParams()
+    state = OPT.init_state(params, hp)
+    spans.drain()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        OPT.apply_updates(params, grads, state, hp, backend=backend)
+    counters = spans.drain()
+    n = 300 * 70 + 70
+    assert counters["optimizer/elements"] == n
+    assert counters.get("optimizer/kernel_elements", 0) == (
+        n if backend == "auto" else 0)
+
+
+def test_adamw_kernel_refuses_misfits(cuda):
+    shapes = [((64, 32), True), ((5,), False)]
+    p, g, m, v = _adamw_tensors(shapes, torch.float32, cuda)
+    scalars = _adamw_scalars(cuda)
+
+    def run(p=p, g=g, m=m, v=v):
+        aw.update_op(p, g, m, v, [True, False], *scalars, *ADAMW.values())
+
+    strided = torch.zeros((64, 64), device=cuda)[:, ::2]
+    for bad in ({"p": [strided, p[1]]}, {"g": [strided, g[1]]},
+                {"m": [m[0].bfloat16(), m[1]]},
+                {"m": [m[0].bfloat16(), m[1].bfloat16()]},
+                {"m": [m[0].half(), m[1].half()],
+                 "v": [v[0].half(), v[1].half()]},
+                {"p": [p[0].bfloat16(), p[1]]},
+                {"g": [g[0].t().contiguous().t(), g[1]]},
+                {"v": [v[0].cpu(), v[1]]}):
+        with pytest.raises(ValueError):
+            run(**bad)
+    with pytest.raises(ValueError, match="not dense"):
+        aw.sumsq_op([strided], [1])
+    with pytest.raises(ValueError, match="float32 gradients"):
+        aw.sumsq_op([g[0].bfloat16()], [1])
