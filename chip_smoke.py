@@ -242,27 +242,34 @@ after phase 15):
 
 Training the remaining families, after phase 16, one model at a time:
 
- 18. for dbrx-132b, llama-3.2-vision-90b, whisper-tiny and
-     recurrentgemma-2b at every width as published, at phase 16 (d)'s
-     configuration (dbrx-132b 1 of 40 layers, the vision model 2 self + 1
-     cross layers, both with bfloat16 Adam moments; whisper-tiny whole;
-     recurrentgemma-2b whole with bfloat16 moments), on (4, 2048) tokens
-     ((4, 448) for whisper's decoder, with 1,500 frames; the vlm with 1,024
-     patches): one float32 SMOKE train step on the card and on the CPU
+ 18. for dbrx-132b, llama-3.2-vision-90b, whisper-tiny,
+     recurrentgemma-2b and granite-4.0-h-small at every width as
+     published, at phase 16 (d)'s configuration (dbrx-132b 1 of 40 layers,
+     the vision model 2 self + 1 cross layers, both with bfloat16 Adam
+     moments; whisper-tiny whole; recurrentgemma-2b whole with bfloat16
+     moments; granite one card's share, searched from one period of its
+     pattern down: 10 of 40 layers, 9 of each layer's 72 experts, as its
+     benchmark cell), on (4, 2048) tokens ((4, 448) for whisper's decoder,
+     with 1,500 frames; the vlm with 1,024 patches; (4, 4096) for
+     granite): one float32 SMOKE train step on the card and on the CPU
      (loss and grad norm within 1e-4 relative); where the family launches
-     the flash kernel, one step's gradients through it against the plain
-     path at that configuration (phase 13's float32 and bf16 per-tensor
-     bars; launches and recomputes as derived); then ``Trainer.run`` for
+     the flash kernel, granite aside, one step's gradients through it
+     against the plain path at that configuration (phase 13's float32 and
+     bf16 per-tensor bars; launches and recomputes as derived); then
+     ``Trainer.run`` for
      ``--train-steps`` steps, the vlm gates set to 0.5 and -0.3 first:
      every gradient after step 1 finite and not all zero, every loss finite
      and the last 3 below the first 3, flash launches and backward
      recomputes per step as derived from the config (2 / 1, 4 / 2, 8 / 4,
-     0 / 0), the optimizer's two kernels launched once each a step, the
+     0 / 0, 2 / 1; granite's SSD scan 18 / 9), the optimizer's two kernels
+     launched once each a step, the
      peak allocation over what was allocated before the
      Trainer within 5% of the prediction, the median step at or above the
      roofline bound; step ms, tokens/s, peak GB, and one traced step
      (device ms of ``FlashAttentionBackward``, ``moe/route``,
-     ``rglru/scan``, ``attention/local`` where they exist; idle share).
+     ``rglru/scan``, ``attention/local``, and granite's
+     ``SSDScanBackward``, ``moe/experts``, ``MoEExpertsBackward`` and
+     ``moe/shared``, where they exist; idle share).
      Each cut goes into the report's ``reduced`` list with its predicted
      GB; the kernels' line adds the ``train_*`` keys to the
      ``flash_attention/<arch>`` rows. Its wall time is printed.
@@ -286,6 +293,16 @@ The optimizer, after phase 13:
      optimizer's launches in the trainer's own run of that model
      (``train_launches``, ``train_launches_per_step``: phase 13's
      mamba2-130m, phase 18's dbrx-132b) and its step time.
+
+The kernels at a train cell's own inputs, after phase 18:
+
+ 21. for granite-4.0-h-small, the flash kernel at (4, 4096, 32, 8, 128)
+     with scores x 1/128 and the SSD scan at (4, 4096, 128, 64, 128),
+     chunk 256, on seeded bf16 inputs: each against its plain version
+     within 2**-6 (four units of bf16 roundoff) of the element's terms'
+     magnitude plus its own, and the same bits on two launches; their lines
+     (graph-replay ms, plain ms, bound, SDPA's ms at the same scale) with
+     phase 18's launches of that model.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -313,6 +330,7 @@ FP64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 LM_BATCH, LM_SEQ = 4, 2048
+LM_KERNELS = ("flash_attention", "ssd_scan")
 KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan", "adamw")
 RTOL_CARD_VS_CPU = 1e-5
 # how much farther from the float32 plain run the bf16 run through a kernel
@@ -461,7 +479,8 @@ def is_kernel(name, key) -> bool:
 RANGES = ("train_step/", "rglru/", "attention/", "moe/")
 TRACED_SPANS = ("train_step/forward", "train_step/optimizer",
                 "FlashAttentionBackward", "SSDScanBackward", "rglru/scan",
-                "attention/local", "moe/route")
+                "attention/local", "moe/route", "moe/experts",
+                "MoEExpertsBackward", "moe/shared")
 
 
 def kernel_kind(key) -> str:
@@ -1956,9 +1975,14 @@ def kernel_layers(cfg, kernel="flash_attention") -> int:
     """Layers whose forward calls ``kernel``'s wrapper once, so its counted
     launches in one prefill, from the config: for flash attention the
     causal self-attention layers (the transformer's blocks, the Whisper
-    decoder's; none for the hybrid, whose layers all have a window and take
-    the plain local attention, or for the ssm); for the SSD scan the ssm's
-    Mamba-2 blocks."""
+    decoder's, the hybrid_moe's attention layers; none for the hybrid,
+    whose layers all have a window and take the plain local attention, or
+    for the ssm); for the SSD scan the ssm's Mamba-2 blocks and the
+    hybrid_moe's Mamba layers."""
+    if cfg.family == "hybrid_moe":
+        pat = cfg.hybrid_pattern
+        kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+        return kinds.count("mamba" if kernel == "ssd_scan" else "attention")
     if kernel == "ssd_scan":
         return cfg.num_layers if cfg.family == "ssm" else 0
     return 0 if cfg.family in ("hybrid", "ssm") else cfg.num_layers
@@ -2011,10 +2035,10 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     from repro_torch.train.trainer import Trainer, TrainConfig
 
     arch = cfg.name
-    other = "ssd_scan" if kernel == "flash_attention" else "flash_attention"
     steps = args.train_steps
     # derived from the config before the run (per_train_step)
     per_step, per_step_backward = per_train_step(cfg, kernel)
+    derived = {k: per_train_step(cfg, k) for k in LM_KERNELS}
     mid = steps // 2
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2034,12 +2058,12 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     lm_reset_launches()
     tr.train_one()
     c1 = train_counts()
-    check(c1[kernel] == per_step and c1[f"{kernel}/backward"]
-          == per_step_backward and c1[other] == 0,
-          f"{arch} train step 1: {c1[kernel]} {kernel} launches (derived "
-          f"{per_step}: {cfg.num_layers} blocks, forward and remat "
-          f"recompute), {c1[f'{kernel}/backward']} backward recomputes "
-          f"(derived {per_step_backward}), {c1[other]} {other}")
+    check(all((c1[k], c1[f"{k}/backward"]) == derived[k]
+              for k in LM_KERNELS),
+          f"{arch} train step 1: launches and backward recomputes "
+          f"{ {k: (c1[k], c1[f'{k}/backward']) for k in LM_KERNELS} } "
+          f"(derived {derived}: {cfg.num_layers} blocks, forward and remat "
+          f"recompute)")
     check(c1["adamw_sumsq"] == c1["adamw_update"] == 1,
           f"{arch} train step 1: {c1['adamw_sumsq']} adamw_sumsq and "
           f"{c1['adamw_update']} adamw_update launches (1 each)")
@@ -2063,12 +2087,13 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     tr.run(on_step=on_step)
     torch.cuda.synchronize()
     counts = train_counts()
-    check(counts[kernel] == per_step * steps
-          and counts[f"{kernel}/backward"] == per_step_backward * steps
-          and counts[other] == 0,
-          f"{arch} Trainer.run, {steps} steps: {counts[kernel]} {kernel} "
-          f"launches, {counts[f'{kernel}/backward']} backward recomputes "
-          f"({per_step} and {per_step_backward} a step)")
+    check(all((counts[k], counts[f"{k}/backward"])
+              == (derived[k][0] * steps, derived[k][1] * steps)
+              for k in LM_KERNELS),
+          f"{arch} Trainer.run, {steps} steps: launches and backward "
+          f"recomputes "
+          f"{ {k: (counts[k], counts[f'{k}/backward']) for k in LM_KERNELS} }"
+          f" ({derived} a step)")
     check(counts["adamw_sumsq"] == counts["adamw_update"] == steps,
           f"{arch} Trainer.run, {steps} steps: {counts['adamw_sumsq']} "
           f"adamw_sumsq and {counts['adamw_update']} adamw_update launches "
@@ -2097,6 +2122,7 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
                counts[f"{kernel}/backward"] // steps,
            "launches": counts[kernel],
            "backward_recomputes": counts[f"{kernel}/backward"],
+           "kernel_launches": {k: counts[k] for k in LM_KERNELS},
            "adamw_launches": {k: counts[k]
                               for k in ("adamw_sumsq", "adamw_update")},
            "grad_norms": [h["grad_norm"] for h in tr.history]}
@@ -2194,7 +2220,9 @@ def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
     m = train_counts()
     check(n[kernel] == 0 and m[kernel] == launches
           and n[f"{kernel}/backward"] == recomputes
-          and m[f"{kernel}/backward"] == 2 * recomputes,
+          and m[f"{kernel}/backward"] == 2 * recomputes
+          and all(n[k] == 0 and m[k] == per_train_step(cfg, k)[0]
+                  for k in LM_KERNELS),
           f"{arch} gradient check: the kernel path launched {kernel} "
           f"{m[kernel]} times (derived {launches}: forward and remat "
           f"recompute), the plain path {n[kernel]}; "
@@ -3474,9 +3502,16 @@ def dryrun_phase(torch, args, report) -> dict:
 # training the remaining families (phase 18)
 # ---------------------------------------------------------------------------
 
-# (arch, tokens per sequence) of phase 18; Whisper's decoder context is 448
+# (arch, tokens per sequence) of phase 18; Whisper's decoder context is
+# 448; granite-4.0-h-small at its benchmark cell's (4, 4096)
 FAMILY_TRAIN = (("dbrx-132b", LM_SEQ), ("llama-3.2-vision-90b", LM_SEQ),
-                ("whisper-tiny", 448), ("recurrentgemma-2b", LM_SEQ))
+                ("whisper-tiny", 448), ("recurrentgemma-2b", LM_SEQ),
+                ("granite-4.0-h-small", 4096))
+# a hybrid_moe model trains in phase 18 as one card of its benchmark cell's
+# deployment holds it (perfbench/configs/granite-4.0-h-small-p1.json): at
+# most one period of its layer pattern, and experts 0 .. E/8 - 1 of each
+# layer's E (8-way expert parallelism; the router keeps its E outputs)
+EXPERT_SHARE = 8
 # the most a phase-18 step may be predicted to hold: its arguments (params,
 # Adam moments, batch) and the peak of its temporaries; 90% of the card's
 # 80 GB
@@ -3490,7 +3525,14 @@ STATE_BYTES = {"float32": 16, "bfloat16": 12}
 def train_cut(full, depth):
     """``full`` at ``depth`` layers, every width as published. A vlm cut
     keeps one cross block after each group of at most ``depth`` self
-    blocks (a ``cross_attn_every`` above the depth would leave none)."""
+    blocks (a ``cross_attn_every`` above the depth would leave none). A
+    hybrid_moe cut holds the card's share of the experts
+    (``EXPERT_SHARE``)."""
+    if full.family == "hybrid_moe":
+        return dataclasses.replace(
+            full, num_layers=depth,
+            num_experts=full.num_router_experts // EXPERT_SHARE,
+            router_experts=full.num_router_experts)
     if depth == full.num_layers:
         return full
     if full.family == "vlm":
@@ -3498,6 +3540,14 @@ def train_cut(full, depth):
             full, num_layers=depth,
             cross_attn_every=min(full.cross_attn_every, depth))
     return dataclasses.replace(full, num_layers=depth)
+
+
+def train_depths(full) -> range:
+    """Phase 18's depths to try, deepest first: from the published depth
+    down, or for hybrid_moe from one period of its layer pattern down."""
+    top = (len(full.hybrid_pattern) if full.family == "hybrid_moe"
+           else full.num_layers)
+    return range(top, 0, -1)
 
 
 def train_hparams(steps, state_dtype):
@@ -3510,8 +3560,9 @@ def train_hparams(steps, state_dtype):
 
 def choose_train_cut(torch, arch, seq, mesh) -> dict:
     """Phase 18's configuration of ``arch`` on (4, ``seq``) tokens, chosen
-    from the dry-run's prediction, never by trial on the card: from the
-    published depth down, float32 Adam moments before bfloat16, the first
+    from the dry-run's prediction, never by trial on the card: from
+    :func:`train_depths`'s first down, float32 Adam moments before
+    bfloat16, the first
     cut whose train step (``launch.steps.build_cell`` on ``mesh`` under
     ``FakeTensorMode``, ``dryrun.count_step``, ``dryrun.local_bytes``)
     holds at most TRAIN_BUDGET_BYTES of arguments and peak temporaries.
@@ -3527,7 +3578,7 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
     full = CB.get_config(arch)
     shape = CB.ShapeConfig(f"phase18_{arch}", seq, LM_BATCH, "train")
     tried, untraced = [], 0
-    for depth in range(full.num_layers, 0, -1):
+    for depth in train_depths(full):
         cfg = train_cut(full, depth)
         for sd, per_param in STATE_BYTES.items():
             if cfg.param_count() * per_param > TRAIN_BUDGET_BYTES:
@@ -3536,34 +3587,45 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
             cand = {"depth": depth, "state_dtype": sd}
             tried.append(cand)
             t0 = time.perf_counter()
-            with FakeTensorMode():
-                spec = ST.build_cell(cfg, shape, mesh,
-                                     hp=train_hparams(2, sd))
-                counter = DR.count_step(spec, mesh)
-                args_bytes = DR.local_bytes(spec.args)
-            del spec
-            total = args_bytes + counter.peak_bytes
+            if cfg.family == "hybrid_moe":
+                # a share of the experts has no mesh path: the step as
+                # one card runs it, with no mesh
+                one = DR.one_card_train(cfg, train_hparams(2, sd), LM_BATCH,
+                                        seq, device=mesh.device_type)
+                args_bytes, temp = one["argument_bytes"], one["temp_bytes"]
+                flops, hbm, coll = one["flops"], one["hbm_bytes"], 0.0
+                flash = one["flash_nodes"]
+            else:
+                with FakeTensorMode():
+                    spec = ST.build_cell(cfg, shape, mesh,
+                                         hp=train_hparams(2, sd))
+                    counter = DR.count_step(spec, mesh)
+                    args_bytes = DR.local_bytes(spec.args)
+                del spec
+                ts = counter.summary
+                temp, flops, hbm = counter.peak_bytes, ts.flops, ts.hbm_bytes
+                coll = ts.collective_bytes
+                flash = counter.kernel_nodes("flash_attention")
+            total = args_bytes + temp
             cand.update(predicted_gb=total / 1e9,
                         trace_s=time.perf_counter() - t0)
             if total > TRAIN_BUDGET_BYTES:
                 continue
-            ts = counter.summary
             rl = RL.Roofline(
                 arch=arch, shape=shape.name, mesh="1x1", n_devices=1,
-                hlo_flops_per_dev=ts.flops, hlo_bytes_per_dev=ts.hbm_bytes,
-                collective_bytes_per_dev=ts.collective_bytes,
+                hlo_flops_per_dev=flops, hlo_bytes_per_dev=hbm,
+                collective_bytes_per_dev=coll,
                 model_flops_global=RL.model_flops(cfg, shape),
                 per_device_memory=float(total))
             rec = {"arch": arch, "seq": seq, "depth": depth,
                    "published_depth": full.num_layers,
                    "cross_attn_every": cfg.cross_attn_every,
                    "state_dtype": sd, "params": cfg.param_count(),
-                   "args_bytes": args_bytes, "temp_bytes": counter.peak_bytes,
+                   "args_bytes": args_bytes, "temp_bytes": temp,
                    "predicted_bytes": total,
                    "bound_ms": 1e3 * rl.step_time_lower_bound,
-                   "bottleneck": rl.bottleneck, "flops": ts.flops,
-                   "hbm_bytes": ts.hbm_bytes,
-                   "flash_nodes": counter.kernel_nodes("flash_attention"),
+                   "bottleneck": rl.bottleneck, "flops": flops,
+                   "hbm_bytes": hbm, "flash_nodes": flash,
                    "tried": tried, "untraced_over_budget": untraced}
             print(f"{arch} train on (4, {seq}): {json.dumps(rec)}")
             return rec
@@ -3574,10 +3636,14 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
 def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
     """Phase 18, one family at the dry-run's configuration ``pred``: (a) a
     float32 SMOKE train step on the card against the CPU; (b) where it
-    launches the flash kernel, the gradient check against the plain path;
-    (c) ``Trainer.run`` with launches, recomputes, peak memory and step
-    time held against what was derived and predicted before it, and one
-    traced step."""
+    launches the flash kernel, the gradient check against the plain path
+    (not for hybrid_moe: its ten layers' top-10 of 72 routes, each over
+    16,384 tokens after a kernel's output, are set apart by float32
+    differences of ~1e-6 in some tokens, and each such token moves its
+    experts' gradients far past the check's bars; its benchmark cell holds
+    its gradients against the plain reference); (c) ``Trainer.run`` with
+    launches, recomputes, peak memory and step time held against what was
+    derived and predicted before it, and one traced step."""
     from repro_torch.configs import base as CB
 
     cfg = train_cut(CB.get_config(arch), pred["depth"])
@@ -3595,7 +3661,7 @@ def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
           f"flash launches and {recomputes} backward recomputes a step")
     rep = {"prediction": pred,
            "card_vs_cpu": smoke_train_card_vs_cpu(torch, np, arch, dev)}
-    if launches:
+    if launches and cfg.family != "hybrid_moe":
         rep["grad_check"] = lm_grad_check(torch, np, cfg, "flash_attention",
                                           args, dev, seq=seq)
     rep["train"] = tr = lm_train(
@@ -3604,7 +3670,9 @@ def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
     spans = tr["trace"]["spans_device_ms"]
     want = (["FlashAttentionBackward"] if launches else []) + (
         ["moe/route"] if cfg.family == "moe" else []) + (
-        ["rglru/scan", "attention/local"] if cfg.family == "hybrid" else [])
+        ["rglru/scan", "attention/local"] if cfg.family == "hybrid" else []
+    ) + (["SSDScanBackward", "moe/route", "moe/experts", "MoEExpertsBackward",
+          "moe/shared"] if cfg.family == "hybrid_moe" else [])
     check(all(spans.get(k, 0) > 0 for k in want),
           f"{arch} traced train step: device ms of "
           f"{ {k: spans.get(k) for k in want} } of "
@@ -3616,6 +3684,7 @@ def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
 def family_train_phase(torch, np, args, dev, report) -> dict:
     """Phase 18; returns, per ``flash_attention/<arch>`` row of phase 14,
     what its train step adds."""
+    from repro_torch.configs import base as CB
     t0 = time.perf_counter()
     preds = report["dryrun"]["family_train"]
     out, rows, reduced = {}, {}, []
@@ -3633,6 +3702,15 @@ def family_train_phase(torch, np, args, dev, report) -> dict:
                                if pred["cross_attn_every"] else ""),
                             "predicted_gb": pred["predicted_bytes"] / 1e9,
                             "reason": why})
+        full = CB.get_config(arch)
+        if full.family == "hybrid_moe":
+            reduced.append({"arch": arch, "cut": f"experts held "
+                            f"{full.num_experts} -> "
+                            f"{train_cut(full, 1).num_experts}",
+                            "predicted_gb": pred["predicted_bytes"] / 1e9,
+                            "reason": f"one card of {EXPERT_SHARE}-way "
+                                      f"expert parallelism, as the "
+                                      f"benchmark cell's"})
         if pred["state_dtype"] != "float32":
             reduced.append({"arch": arch, "cut": "bfloat16 Adam moments",
                             "predicted_gb": pred["predicted_bytes"] / 1e9,
@@ -3656,6 +3734,132 @@ def family_train_phase(torch, np, args, dev, report) -> dict:
     print(f"phase 18 (training the remaining families): {out['wall_s']:.1f} "
           f"s")
     report["family_train"] = out
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels at a train cell's own inputs (phase 21)
+# ---------------------------------------------------------------------------
+
+# the models of phase 18 whose kernels run at inputs no other phase gives
+# them: granite's flash at (4, 4096, 32, 8, 128) with scores x 1/128 and
+# its SSD scan at 128 heads
+CELL_KERNEL_ARCHS = ("granite-4.0-h-small",)
+# phase 21's bar, per element: |kernel - plain| <= CELL_BAR x (A + |plain|),
+# A the same function of the inputs' absolute values (the plain version on
+# |v|, or on |X|, |B|, |C| with the same decays: the sum of the terms'
+# magnitudes). Both round their float32 result to bf16 once (u |plain|
+# each, u = 2**-8 bf16's unit roundoff), and the kernel rounds its
+# products' operands to bf16 (the flash kernel P, the SSD kernel its
+# states and chunk products), each term off by u at a stage: 2**-6 is
+# four units, for the two outputs' roundings and two stages of operands
+CELL_BAR = 2.0 ** -6
+
+
+def cell_kernel_inputs(torch, cfg, seq, dev, seed) -> tuple:
+    """Seeded bf16 inputs of the flash kernel and the SSD scan at the
+    shapes ``cfg``'s train step on (LM_BATCH, ``seq``) tokens gives them:
+    ``(q, k, v)`` and ``(X, Adt, Bc, Cc)``, Adt float32 in (-0.35, 0)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, S = LM_BATCH, seq
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hs = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    adt = -F.softplus(randn(B, S, Hs, dtype=torch.float32)) * 0.5
+    return ((randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)),
+            (randn(B, S, Hs, P), adt, randn(B, S, N), randn(B, S, N)))
+
+
+def cell_kernel_phase(torch, args, dev, report) -> list:
+    """Phase 21, after phase 18: for each model of ``CELL_KERNEL_ARCHS``
+    that phase 18 trained, the flash kernel (at the model's softmax scale)
+    and the SSD scan on seeded bf16 inputs at the shapes its train step
+    gave them, each against its plain version by the ``CELL_BAR`` bar and
+    the same bits on two launches; their lines (graph-replay ms, plain
+    ms, bound, SDPA's ms at the same scale for the flash kernel) with the
+    launches of phase 18's ``Trainer.run`` of that model."""
+    import torch.nn.functional as F
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    rows, found = [], {}
+    for arch in CELL_KERNEL_ARCHS:
+        fam = report["family_train"].get(arch)
+        if fam is None:
+            continue
+        seq = dict(FAMILY_TRAIN)[arch]
+        cfg = train_cut(CB.get_config(arch), fam["prediction"]["depth"])
+        scale = cfg.attn_scale or None
+        tr = fam["train"]
+        torch.cuda.empty_cache()
+        (q, k, v), (X, Adt, Bc, Cc) = cell_kernel_inputs(
+            torch, cfg, seq, dev, args.seed)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        runs = {
+            "flash_attention": (
+                lambda b, v=v: fa_mod.flash_attention(q, k, v, backend=b,
+                                                      scale=scale),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True,
+                    scale=scale),
+                fa_mod.work(q, k), f" {tuple(q.shape[:3])} kv "
+                f"{k.shape[2]} scale {scale}"),
+            "ssd_scan": (
+                lambda b, X=X, Bc=Bc, Cc=Cc: ssd_mod.ssd_scan(
+                    X, Adt, Bc, Cc, chunk=cfg.ssm_chunk, backend=b),
+                None, ssd_mod.work(X, Bc, cfg.ssm_chunk),
+                f" {tuple(X.shape)} chunk {cfg.ssm_chunk}")}
+        absolute = {"flash_attention": lambda: runs["flash_attention"][0](
+                        "torch", v=v.abs()),
+                    "ssd_scan": lambda: runs["ssd_scan"][0](
+                        "torch", X=X.abs(), Bc=Bc.abs(), Cc=Cc.abs())}
+        for name, (run, lib, work, tag) in runs.items():
+            got, want = run("cuda").float(), run("torch").float()
+            mag = absolute[name]().float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            ratio = torch.nan_to_num(err / (CELL_BAR * (mag + want.abs())),
+                                     nan=0.0, posinf=float("inf"))
+            worst = int(ratio.argmax())
+            f = found[f"{name}/{arch}"] = {
+                "max_abs_err": float(err.max()),
+                "max_abs_ref": float(want.abs().max()),
+                "max_magnitude": float(mag.max()),
+                "worst_err_over_bar": float(ratio.max()),
+                "worst_element": [float(t.reshape(-1)[worst])
+                                  for t in (got, want, mag)],
+                "same_bits": bool(torch.equal(run("cuda"), run("cuda")))}
+            del got, want, mag, err, ratio
+            row = kernel_row(torch, f"{name}/{arch}", name,
+                             "src/repro/kernels/" + name + ".py",
+                             lambda: run("cuda"), lambda: run("torch"), lib,
+                             work, torch.bfloat16,
+                             tr["kernel_launches"][name],
+                             f["max_abs_err"], tag)
+            row.update(f, train_launches=tr["kernel_launches"][name],
+                       train_launches_per_step=tr["kernel_launches"][name]
+                       // tr["steps"], train_step_ms=tr["step_ms"])
+            rows.append(row)
+        del q, k, v, qt, kt, vt, X, Adt, Bc, Cc
+        torch.cuda.empty_cache()
+    report["cell_kernels"] = found
+    # checked after every line is printed, so a miss still shows the times
+    for name, f in found.items():
+        check(f["worst_err_over_bar"] <= 1.0,
+              f"{name} kernel equals its plain version at its train cell's "
+              f"inputs within {CELL_BAR} x (the terms' magnitude + |ref|) "
+              f"(max abs err {f['max_abs_err']:.3e}, max |ref| "
+              f"{f['max_abs_ref']:.3e}; worst element at "
+              f"{f['worst_err_over_bar']:.3f} of its bar: kernel, plain, "
+              f"magnitude {f['worst_element']})")
+        check(f["same_bits"], f"{name}: two bf16 launches at its train "
+              f"cell's inputs give the same bits")
     return rows
 
 
@@ -4161,6 +4365,9 @@ def main(argv=None) -> int:
     per_case = adamw_train_counts(report)
     for row in adamw_rows:
         row.update(per_case[row["case"]])
+
+    # -- 21. the LM kernels at a train cell's own inputs -----------------------
+    kernels += cell_kernel_phase(torch, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

@@ -65,7 +65,8 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 # the kernels' registered ops: (bytes, operations) from their args
 KERNEL_WORK = {
-    "repro_torch.flash_attention": lambda q, k, v: _fa.work(q, k),
+    "repro_torch.flash_attention": lambda q, k, v, scale=None:
+        _fa.work(q, k),
     "repro_torch.ssd_scan": lambda X, Adt, Bc, Cc, chunk:
         _ssd.work(X, Bc, chunk),
     "repro_torch.adamw_sumsq": lambda grads, replicas:

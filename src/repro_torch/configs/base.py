@@ -31,10 +31,13 @@ class ModelConfig:
       - ``audio``   Whisper-style encoder-decoder (stub conv frontend)
       - ``vlm``     Llama-vision: self-attn decoder + interleaved cross-attn
                     image layers (stub patch-embed frontend)
+      - ``hybrid_moe`` Granite-4.0-H: Mamba-2 and attention mixers by
+                    ``hybrid_pattern``, each layer's FFN a top-k mixture of
+                    experts beside a shared SwiGLU expert
     """
 
     name: str
-    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | hybrid_moe
 
     num_layers: int
     d_model: int
@@ -50,9 +53,14 @@ class ModelConfig:
     rope_theta: float = 10_000.0
 
     # --- MoE ---
-    num_experts: int = 0
+    num_experts: int = 0        # experts this device holds
     num_experts_per_tok: int = 0
     capacity_factor: float = 1.25
+    # experts the router scores (0 -> num_experts); a device holding a share
+    # holds experts first_expert .. first_expert + num_experts - 1
+    router_experts: int = 0
+    first_expert: int = 0
+    shared_d_ff: int = 0        # width of the shared SwiGLU expert; 0 -> none
 
     # --- SSM (Mamba-2 / SSD) ---
     ssm_state: int = 0
@@ -63,8 +71,16 @@ class ModelConfig:
 
     # --- hybrid (RecurrentGemma) ---
     attn_window: int = 0        # local attention window; 0 -> global
-    hybrid_pattern: Tuple[str, ...] = ()  # e.g. ("rglru","rglru","attn")
+    # e.g. ("rglru","rglru","attn"); hybrid_moe: "mamba" / "attention"
+    hybrid_pattern: Tuple[str, ...] = ()
     rglru_width: int = 0        # recurrent width (0 -> d_model)
+
+    # --- attention and scalar multipliers (Granite-4.0-H) ---
+    use_rope: bool = True       # False: no positional embedding (NoPE)
+    attn_scale: float = 0.0     # softmax scale of the scores; 0 -> 1/sqrt(hd)
+    embedding_multiplier: float = 1.0   # the embedding times this
+    residual_multiplier: float = 1.0    # each branch times this
+    logits_scaling: float = 1.0         # the logits divided by this
 
     # --- encoder-decoder (audio) ---
     encoder_layers: int = 0
@@ -105,6 +121,12 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def num_router_experts(self) -> int:
+        """Experts the router scores: all of them, of which this device
+        holds ``num_experts``."""
+        return self.router_experts or self.num_experts
+
+    @property
     def attention_free(self) -> bool:
         return self.family == "ssm"
 
@@ -115,7 +137,9 @@ class ModelConfig:
 
     @property
     def has_decoder(self) -> bool:
-        return True  # all assigned archs decode (whisper via its decoder)
+        """Whether the family decodes through a cache: all assigned archs
+        (whisper via its decoder), not yet ``hybrid_moe``."""
+        return self.family != "hybrid_moe"
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
@@ -153,6 +177,19 @@ class ModelConfig:
             pat = self.hybrid_pattern or ("rglru", "rglru", "attn")
             n_attn = sum(1 for i in range(self.num_layers) if pat[i % len(pat)] == "attn")
             total += n_attn * attn + (self.num_layers - n_attn) * rec
+        elif self.family == "hybrid_moe":
+            di, ns, w = self.d_inner, self.ssm_state, self.ssm_conv_width
+            mamba = (d * (2 * di + 2 * ns + self.ssm_heads)
+                     + w * (di + 2 * ns) + (di + 2 * ns)   # conv and bias
+                     + self.ssm_heads * 3 + di + di * d)   # dt bias, A, D
+            attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            ffn = (self.num_experts * 3 * d * dff
+                   + d * self.num_router_experts + 3 * d * self.shared_d_ff)
+            pat = self.hybrid_pattern
+            n_attn = sum(1 for i in range(self.num_layers)
+                         if pat[i % len(pat)] == "attention")
+            total += (n_attn * attn + (self.num_layers - n_attn) * mamba
+                      + self.num_layers * (ffn + 2 * d) + d)  # + final norm
         elif self.family == "audio":
             attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
             enc_layer = attn + 2 * d * dff + d * dff + 2 * d  # self + mlp(gelu->2 mats? use 3)
@@ -193,6 +230,7 @@ ARCH_IDS = (
     "grok_1_314b",
     "whisper_tiny",
     "llama3_2_vision_90b",
+    "granite_4_0_h_small",
 )
 
 # Dashes as they appear in the assignment, mapped to module names.
@@ -207,6 +245,7 @@ _ALIASES = {
     "grok-1-314b": "grok_1_314b",
     "whisper-tiny": "whisper_tiny",
     "llama-3.2-vision-90b": "llama3_2_vision_90b",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 
@@ -228,12 +267,14 @@ def get_shape(name: str) -> ShapeConfig:
 
 def cells(include_skipped: bool = False):
     """All (arch, shape) dry-run cells. ``long_500k`` only for sub-quadratic
-    families unless include_skipped."""
+    families, decode shapes only for families that decode, unless
+    include_skipped."""
     out = []
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         for shape in SHAPES.values():
-            skipped = shape.name == "long_500k" and not cfg.subquadratic
+            skipped = (shape.name == "long_500k" and not cfg.subquadratic
+                       or shape.kind == "decode" and not cfg.has_decoder)
             if skipped and not include_skipped:
                 continue
             out.append((arch, shape.name))

@@ -8,7 +8,8 @@ kernel, :74). q is ``(B, S, H, D)``, k and v ``(B, S, KV, D)`` with
 softmax and accumulator in float32. The kernel reads the three operands
 through their strides (only the last dimension must be contiguous) and
 takes any S; it is built for D in :data:`HEAD_DIMS` and float32 or
-bfloat16 inputs. bfloat16 runs on the tensor cores and rounds the
+bfloat16 inputs. The scores are scaled by ``scale``, 1/sqrt(D) unless
+given. bfloat16 runs on the tensor cores and rounds the
 probabilities to bfloat16 before P.V, as the reference model does; its
 operands must start on 16 bytes with strides that are multiples of 8
 elements. float32 runs on the CUDA cores. The plain version is
@@ -39,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -108,13 +109,15 @@ def _check(q, k, v) -> None:
         _build.check_16_byte_rows(("q", q), ("k", k), ("v", v))
 
 
-def flash_attention(q, k, v, *, backend: str = "auto") -> torch.Tensor:
-    """Causal GQA attention. q: (B, S, H, D); k, v: (B, S, KV, D).
-    Differentiable through :class:`FlashAttention` when grad is enabled and
-    an input requires it."""
+def flash_attention(q, k, v, *, backend: str = "auto",
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Causal GQA attention. q: (B, S, H, D); k, v: (B, S, KV, D); the
+    scores scaled by ``scale`` (1/sqrt(D) when None). Differentiable
+    through :class:`FlashAttention` when grad is enabled and an input
+    requires it."""
     if _build.needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, backend)
-    return _forward(q, k, v, backend)
+        return FlashAttention.apply(q, k, v, backend, scale)
+    return _forward(q, k, v, backend, scale)
 
 
 def work(q, k) -> tuple:
@@ -129,28 +132,28 @@ def work(q, k) -> tuple:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
-def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """The registered op: the plain version on the CPU, the kernel on the
     card (:func:`kernel_forward`); contiguous, as the kernel writes it."""
-    return flash_attention_ref(q, k, v).contiguous()
+    return flash_attention_ref(q, k, v, scale).contiguous()
 
 
 @flash_attention_op.register_kernel("cuda")
-def _flash_attention_cuda(q, k, v):
-    return kernel_forward(q, k, v)
+def _flash_attention_cuda(q, k, v, scale=None):
+    return kernel_forward(q, k, v, scale=scale)
 
 
 @flash_attention_op.register_fake
-def _flash_attention_fake(q, k, v):
+def _flash_attention_fake(q, k, v, scale=None):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
-def _forward(q, k, v, backend: str) -> torch.Tensor:
+def _forward(q, k, v, backend: str, scale=None) -> torch.Tensor:
     if backend == "torch":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, scale)
     _build.use_kernel(q, backend, "flash_attention")  # raises on a misfit
-    return flash_attention_op(q, k, v)
+    return flash_attention_op(q, k, v, scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -159,23 +162,26 @@ class FlashAttention(torch.autograd.Function):
     gradients."""
 
     @staticmethod
-    def forward(ctx, q, k, v, backend):
+    def forward(ctx, q, k, v, backend, scale=None):
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, backend)
+        ctx.scale = scale
+        return _forward(q, k, v, backend, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
         backward_recomputes["flash_attention"] += 1
-        grads = _build.recompute_grads(reference_attention,
-                                       ctx.saved_tensors,
-                                       ctx.needs_input_grad[:3], grad_out)
-        return (*grads, None)
+        grads = _build.recompute_grads(
+            lambda q, k, v: reference_attention(q, k, v, ctx.scale),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out)
+        return (*grads, None, None)
 
 
-def kernel_forward(q, k, v) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors. No autograd: raises when
-    grad is enabled and an input requires it (call :func:`flash_attention`,
-    which routes such inputs through :class:`FlashAttention`)."""
+def kernel_forward(q, k, v, *, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors, the scores scaled by
+    ``scale`` (1/sqrt(D) when None). No autograd: raises when grad is
+    enabled and an input requires it (call :func:`flash_attention`, which
+    routes such inputs through :class:`FlashAttention`)."""
     _build.check_no_grad("flash_attention", q, k, v)
     _build.use_kernel(q, "cuda", "flash_attention")
     _check(q, k, v)
@@ -188,7 +194,8 @@ def kernel_forward(q, k, v) -> torch.Tensor:
     with torch.cuda.device(q.device):
         rc = library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], D, strides, 1.0 / math.sqrt(D),
+            H, k.shape[2], D, strides,
+            1.0 / math.sqrt(D) if scale is None else scale,
             _build.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, "flash_attention_fwd")

@@ -16,9 +16,10 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
 
-def flash_attention(q, k, v, *, backend: str = "auto"):
-    """Causal GQA attention. q: (B,S,H,D); k, v: (B,S,KV,D)."""
-    return _fa.flash_attention(q, k, v, backend=backend)
+def flash_attention(q, k, v, *, backend: str = "auto", scale=None):
+    """Causal GQA attention. q: (B,S,H,D); k, v: (B,S,KV,D); the scores
+    scaled by ``scale`` (1/sqrt(D) when None)."""
+    return _fa.flash_attention(q, k, v, backend=backend, scale=scale)
 
 
 def ssd_scan(X, Adt, Bc, Cc, *, chunk: int = _ssd.DEFAULT_CHUNK,

@@ -24,18 +24,19 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def flash_attention_ref(q, k, v):
+def flash_attention_ref(q, k, v, scale=None):
     """Causal GQA attention, materialized scores (the O(S^2) oracle).
 
     q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0.
-    Returns (B, S, H, D) in q.dtype; softmax/accumulate in f32.
+    Returns (B, S, H, D) in q.dtype; softmax/accumulate in f32. The scores
+    are scaled by ``scale``, 1/sqrt(D) when None.
     """
     B, S, H, D = q.shape
     KV = k.shape[2]
     if KV != H:
         k = torch.repeat_interleave(k, H // KV, dim=2)
         v = torch.repeat_interleave(v, H // KV, dim=2)
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     acc = _acc_dtype(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
@@ -97,16 +98,17 @@ def _sdpa(q, k, v, mask, scale):
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
-def reference_attention(q, k, v):
+def reference_attention(q, k, v, scale=None):
     """The reference's ``causal_attention``: ``_sdpa`` while S fits one
     block, else an online softmax over blocks of :data:`BLOCK_Q` queries
     and :data:`BLOCK_KV` keys (every key block, masked ones included), with
     the scores of each block from the activations' dtype product and its
     unnormalised probabilities rounded to that dtype before P.V. A last
     block may be short (the reference's blocks divide S). Differentiable:
-    the reference's train step takes its gradient through this function."""
+    the reference's train step takes its gradient through this function.
+    The scores are scaled by ``scale``, 1/sqrt(hd) when None."""
     B, S, H, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     acc_dtype = _acc_dtype(q.dtype)
     k = repeat_kv(k, H)
     v = repeat_kv(v, H)

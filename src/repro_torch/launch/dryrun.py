@@ -17,6 +17,12 @@ HLO. ``--device`` (default ``cuda``) is the fake tensors' device; ``cpu``
 traces the same ops off the card, but for the collectives DTensor picks
 per device type (``gloo`` has no all-to-all).
 
+``--one-card CONFIG_JSON`` predicts instead the memory of one card's
+train step on its own, with no mesh (:func:`one_card_train`): a JSON file
+holding ``ModelConfig``'s fields under ``model`` and ``OptHParams``'s
+under ``optimizer`` (a benchmark configuration's file), on ``--batch`` x
+``--seq`` tokens; it prints one JSON record.
+
 Each cell's record goes to ``<out>/<arch>_<shape>_<mesh>.json`` (default
 ``results/dryrun_torch``): status, timings (``build_s``, ``trace_s``),
 ``memory_analysis`` (``argument_size_in_bytes``: this rank's shards of the
@@ -43,6 +49,8 @@ from repro_torch.configs import base as CB
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import model as M
+from repro_torch.train import optimizer as OPT
 
 
 def local_bytes(tree) -> int:
@@ -67,6 +75,39 @@ def count_step(spec: ST.DryrunSpec, mesh) -> OpCounter:
     with SH.use_mesh(mesh), counter:
         spec.fn(*spec.args)
     return counter
+
+
+def one_card_train(cfg: CB.ModelConfig, hp: OPT.OptHParams,
+                   global_batch: int, seq_len: int, *,
+                   device="cuda") -> dict:
+    """The predicted memory of one train step of ``cfg`` on one card, with
+    no mesh: the step (``launch.steps.make_train_step``, as ``Trainer``
+    runs it) traced once under ``FakeTensorMode`` and the op counter.
+    ``argument_bytes`` are the parameters, both Adam moments and the batch;
+    ``temp_bytes`` the peak of the storages the step created (gradients,
+    activations, the kernels' recomputes); ``predicted_bytes`` their sum,
+    to hold against ``torch.cuda.max_memory_allocated`` (which the
+    allocator's rounding and the kernels' own scratch can lift above it)."""
+    shape = CB.ShapeConfig("one_card", seq_len, global_batch, "train")
+    dev = torch.device(device)
+    t0 = time.time()
+    with FakeTensorMode():
+        model, _ = M.abstract_init(cfg, device=dev)
+        model.requires_grad_(True)
+        opt = OPT.init_state(dict(model.named_parameters()), hp)
+        batch, _ = ST.batch_specs(cfg, shape, with_labels=True, device=dev)
+        args = local_bytes((model, opt, batch))
+        counter = OpCounter()
+        with counter:
+            ST.make_train_step(cfg, hp)(model, opt, batch)
+    summary = counter.summary
+    return {"name": cfg.name, "batch": global_batch, "seq": seq_len,
+            "params": cfg.param_count(), "state_dtype": hp.state_dtype,
+            "argument_bytes": args, "temp_bytes": counter.peak_bytes,
+            "predicted_bytes": args + counter.peak_bytes,
+            "flops": summary.flops, "hbm_bytes": summary.hbm_bytes,
+            "flash_nodes": counter.kernel_nodes("flash_attention"),
+            "trace_s": round(time.time() - t0, 2)}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -148,7 +189,21 @@ def main(argv=None):
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="device of the fake tensors (cuda or cpu)")
+    ap.add_argument("--one-card", metavar="CONFIG_JSON", default=None,
+                    help="predict one card's train step of this "
+                         "configuration (model and optimizer sections)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=4096)
     args = ap.parse_args(argv)
+
+    if args.one_card:
+        conf = json.loads(pathlib.Path(args.one_card).read_text())
+        cfg = CB.ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in conf["model"].items()})
+        rec = one_card_train(cfg, OPT.OptHParams(**conf["optimizer"]),
+                             args.batch, args.seq, device=args.device)
+        print(json.dumps(rec), flush=True)
+        return 0
 
     out_dir = pathlib.Path(args.out)
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]

@@ -208,6 +208,8 @@ def project_out(ctx, wo):
 
 
 def _project_qkv(p, x, positions, theta, *, decode=False):
+    """q, k, v of x; rotated by RoPE at ``positions``, or not at all when
+    ``positions`` is None (no positional embedding)."""
     q = project_heads(x, p.wq)
     k = project_heads(x, p.wk)
     v = project_heads(x, p.wv)
@@ -215,7 +217,9 @@ def _project_qkv(p, x, positions, theta, *, decode=False):
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    if positions is not None:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     if decode:
         # one-token decode: the reference keeps the heads replicated (its
         # KV cache is seq-sharded over the model axis)
@@ -249,8 +253,9 @@ def reference_route(x: torch.Tensor, backend: str) -> bool:
     return backend == "auto" and not card_route(x)
 
 
-def causal_attention(q, k, v, *, backend: str = "auto"):
-    """Causal GQA attention. q: (B,S,H,hd); k, v: (B,S,KV,hd).
+def causal_attention(q, k, v, *, backend: str = "auto", scale=None):
+    """Causal GQA attention. q: (B,S,H,hd); k, v: (B,S,KV,hd); the scores
+    scaled by ``scale`` (1/sqrt(hd) when None).
 
     On the card, and wherever ``backend`` names one, it runs the
     flash-attention kernel's wrapper (``ops.flash_attention``); when grad
@@ -270,10 +275,10 @@ def causal_attention(q, k, v, *, backend: str = "auto"):
     only this one follows the reference's rounding order."""
     if is_dtensor(q):
         return _per_rank_heads(lambda *a: causal_attention(
-            *a, backend=backend), q, k, v)
+            *a, backend=backend, scale=scale), q, k, v)
     if reference_route(q, backend):
-        return reference_attention(q, k, v)
-    return ops.flash_attention(q, k, v, backend=backend)
+        return reference_attention(q, k, v, scale)
+    return ops.flash_attention(q, k, v, backend=backend, scale=scale)
 
 
 def _per_rank_heads(fn, q, k, v):
@@ -445,12 +450,16 @@ def attention_apply(p, x, cfg, *, positions, window: int = 0,
                     backend: str = "auto"):
     """Prefill attention over full sequences: with a ``window``, the plain
     :func:`local_attention`; without, :func:`causal_attention` (the flash
-    kernel on the card; ``backend`` goes to it)."""
-    q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
+    kernel on the card; ``backend`` goes to it), the scores scaled by
+    ``cfg.attn_scale`` where it is set. ``cfg.use_rope`` False leaves q
+    and k unrotated."""
+    q, k, v = _project_qkv(p, x, positions if cfg.use_rope else None,
+                           cfg.rope_theta)
     if window:
         ctx = local_attention(q, k, v, window)
     else:
-        ctx = causal_attention(q, k, v, backend=backend)
+        ctx = causal_attention(q, k, v, backend=backend,
+                               scale=cfg.attn_scale or None)
     ctx = constrain(ctx, "batch", "seq", "heads", None)
     out = project_out(ctx, p.wo)
     return constrain(out, "batch", "seq", None)

@@ -4,7 +4,8 @@ cross entropy plus the auxiliary losses of ``AUX_COEFS``).
 
 Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``), ``hybrid`` (``rglru``) and
-``audio`` (``whisper``). :func:`abstract_init` and :func:`abstract_cache`
+``audio`` (``whisper``); ``hybrid_moe`` (``hybrid_moe``, Granite-4.0-H)
+is the port's own, with no counterpart in the reference. :func:`abstract_init` and :func:`abstract_cache`
 build the model and the decode cache as fake tensors for the dry-run
 (``repro_torch.launch.dryrun``): shapes, dtypes and devices, no memory.
 """
@@ -24,7 +25,7 @@ AUX_COEFS = {"load_balance": 0.01, "router_z": 0.001}
 # each family's model class in its module
 _CLASSES = {"dense": "TransformerLM", "moe": "TransformerLM",
             "vlm": "TransformerLM", "ssm": "MambaLM", "hybrid": "HybridLM",
-            "audio": "WhisperLM"}
+            "audio": "WhisperLM", "hybrid_moe": "HybridMoELM"}
 
 # the top-level parameter trees whose leaves the reference stacks on a
 # leading layer axis; the port keeps one module per layer under them
@@ -48,6 +49,8 @@ def _family_module(cfg: ModelConfig):
         from repro_torch.models import rglru as mod
     elif cfg.family == "audio":
         from repro_torch.models import whisper as mod
+    elif cfg.family == "hybrid_moe":
+        from repro_torch.models import hybrid_moe as mod
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return mod
@@ -171,8 +174,8 @@ def decode_step(model: nn.Module, cfg: ModelConfig, cache, tokens,
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch, *,
             backend: str = "auto"):
     """Next-token loss. batch: {"tokens", "labels", + modality extras}.
-    Returns (loss, {"nll": loss, **aux}); only the moe family has
-    auxiliary losses, each added with its ``AUX_COEFS`` weight divided by
+    Returns (loss, {"nll": loss, **aux}); only the moe and hybrid_moe
+    families have auxiliary losses, each added with its ``AUX_COEFS`` weight divided by
     ``num_layers`` (``forward`` sums them over the layers)."""
     logits, aux = forward(model, cfg, batch, backend=backend)
     loss = L.cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)

@@ -49,7 +49,9 @@ class SSMBlock(nn.Module):
     """The reference's block tree: projections w_x, w_z (d, di), w_B, w_C
     (d, N), w_dt (d, H) and its bias b_dt (H,), the depthwise conv conv_w
     (W, di + 2N) and conv_b, A_log and D (H,), the gated norm (di,), w_out
-    (di, d) and the input norm ln (d,)."""
+    (di, d) and the input norm ln (d,). With ``norm=False`` the mixer
+    alone, without ``ln``, for a layer that norms its own input
+    (``models.hybrid_moe``)."""
 
     AXES = {"w_x": ("embed", "ssm_inner"), "w_z": ("embed", "ssm_inner"),
             "w_B": ("embed", "ssm_state"), "w_C": ("embed", "ssm_state"),
@@ -59,7 +61,7 @@ class SSMBlock(nn.Module):
             "norm": ("ssm_inner",), "w_out": ("ssm_inner", "embed"),
             "ln": ("embed",)}
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, norm: bool = True):
         super().__init__()
         d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         conv_ch = di + 2 * n
@@ -75,7 +77,8 @@ class SSMBlock(nn.Module):
         self.D = L.empty((h,), device)
         self.norm = L.empty((di,), device)
         self.w_out = L.empty((di, d), device)
-        self.ln = L.empty((d,), device)
+        if norm:
+            self.ln = L.empty((d,), device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.w_x, self.w_z, self.w_B, self.w_C, self.w_dt):
@@ -91,7 +94,8 @@ class SSMBlock(nn.Module):
         self.D.fill_(1.0)
         self.norm.fill_(1.0)
         L.dense_init_(self.w_out, generator)
-        self.ln.fill_(1.0)
+        if hasattr(self, "ln"):
+            self.ln.fill_(1.0)
 
 
 class MambaLM(nn.Module):
@@ -141,18 +145,26 @@ def _ssm_pre(p, x, cfg):
 
 
 def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
-    """Full-sequence (prefill) Mamba-2 block."""
+    """Full-sequence (prefill) Mamba-2 block: the input norm, the mixer,
+    the residual add."""
     h_in = L.rms_norm(x, p.ln, cfg.norm_eps)
+    return x + ssm_mixer(p, h_in, cfg, backend).to(x.dtype)
+
+
+def ssm_mixer(p, h_in, cfg: ModelConfig, backend: str):
+    """The Mamba-2 mixer over full sequences on the normed input h_in
+    (B, S, D): projections, causal conv, SSD scan, gated norm and the
+    output projection, in h_in's dtype."""
     xin, z, Bc, Cc, dt = _ssm_pre(p, h_in, cfg)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p.conv_w.to(x.dtype),
-                                   p.conv_b.to(x.dtype)))
+    conv_out = F.silu(_causal_conv(conv_in, p.conv_w.to(h_in.dtype),
+                                   p.conv_b.to(h_in.dtype)))
     di, n = cfg.d_inner, cfg.ssm_state
     xin, Bc, Cc = conv_out.split([di, n, n], dim=-1)
     xin = constrain(xin, "batch", "seq", "ssm_inner")
 
     H, P_ = cfg.ssm_heads, cfg.ssm_head_dim
-    S = x.shape[1]
+    S = h_in.shape[1]
     Xh = split_heads(xin, H, P_)
     A = -torch.exp(p.A_log)                                 # (H,)
     Adt = (dt * A).float()                                  # (B,S,H), < 0
@@ -161,8 +173,8 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
     Y = Y + Xh * p.D.to(Xh.dtype)[None, None, :, None]
     y = merge_heads(Y)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = y @ p.w_out.to(x.dtype)
-    return x + constrain(out, "batch", "seq", None).to(x.dtype)
+    out = y @ p.w_out.to(h_in.dtype)
+    return constrain(out, "batch", "seq", None)
 
 
 def ssd_y(X, A, Bc, Cc, chunk: int, backend: str):

@@ -45,7 +45,8 @@ class Block(nn.Module):
                                       cfg.num_kv_heads, cfg.head_dim,
                                       cfg.qkv_bias, device=device)
         self.ffn = (MOE.MoEParams(cfg.d_model, cfg.d_ff, cfg.num_experts,
-                                  device=device)
+                                  device=device,
+                                  router_experts=cfg.router_experts)
                     if cfg.family == "moe"
                     else L.MLPParams(cfg.d_model, cfg.d_ff, device=device))
         self.ln1 = L.empty((cfg.d_model,), device)

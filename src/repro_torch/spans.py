@@ -23,10 +23,14 @@ and ``train_step/backward`` (per microbatch; the backward's device work
 runs on autograd's own thread and is timed on its autograd nodes, the span
 holds the host's wall time until it returns), ``train_step/optimizer`` and
 ``train_step/readback`` (the metrics to the host: the step's one wait for
-the device). Inside the models: ``moe/route``, ``attention/local``,
-``rglru/scan``. Counters of the MoE dispatch (``models/moe.py``, forward
-only): ``moe/kept`` (choices that found a slot), ``moe/choices`` (G·S·k)
-and ``moe/slots`` (G·E·C).
+the device). Inside the models: ``moe/route``, ``moe/experts`` (a share's
+experts and combine; backward ``MoEExpertsBackward``), ``moe/shared``,
+``attention/local``, ``rglru/scan``. Counters of the MoE dispatch
+(``models/moe.py``, forward only): ``moe/kept`` (choices that found a
+slot), ``moe/choices`` (G·S·k) and ``moe/slots`` (G·E·C); for a layer
+holding a share of the experts ``moe/held_choices`` (choices routed to a
+held expert), ``moe/held_kept`` (those that found a slot) and
+``moe/held_slots`` (G·held·C).
 """
 from __future__ import annotations
 

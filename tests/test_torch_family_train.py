@@ -59,7 +59,8 @@ VLM_CARD_CUT = dict(num_layers=2, cross_attn_every=2)
 CARD_CUTS = {"dbrx-132b": (1, "bfloat16"),
              "llama-3.2-vision-90b": (2, "bfloat16"),
              "whisper-tiny": (4, "float32"),
-             "recurrentgemma-2b": (26, "bfloat16")}
+             "recurrentgemma-2b": (26, "bfloat16"),
+             "granite-4.0-h-small": (10, "float32")}
 
 
 @pytest.mark.parametrize("cut", [VLM_CUT, VLM_CARD_CUT],
@@ -153,7 +154,7 @@ def test_piecewise_update_is_the_whole_update_bit_for_bit(monkeypatch):
 COUNT_CASES = [("llama3.2-1b", {}), ("mamba2-130m", {}), ("dbrx-132b", {}),
                ("llama-3.2-vision-90b", {}), ("llama-3.2-vision-90b", VLM_CUT),
                ("llama-3.2-vision-90b", VLM_CARD_CUT), ("whisper-tiny", {}),
-               ("recurrentgemma-2b", {})]
+               ("recurrentgemma-2b", {}), ("granite-4.0-h-small", {})]
 
 
 @pytest.mark.parametrize("arch,cut", COUNT_CASES,
@@ -218,7 +219,9 @@ def test_card_configuration_is_predicted_within_budget(arch, predictions):
     """The cut the card trains, chosen by the dry-run's prediction (the
     deepest, float32 moments before bfloat16), holds at most 72 GB of
     arguments and peak temporaries; widths, heads, experts, vocabulary and
-    tokens as published; its flash nodes as ``per_train_step`` derives."""
+    tokens as published (a hybrid_moe cut holds an ``EXPERT_SHARE``-th of
+    the experts the router scores); its flash nodes as ``per_train_step``
+    derives."""
     rec = predictions[arch]
     assert (rec["depth"], rec["state_dtype"]) == CARD_CUTS[arch]
     assert rec["predicted_bytes"] == rec["args_bytes"] + rec["temp_bytes"]
@@ -226,8 +229,11 @@ def test_card_configuration_is_predicted_within_budget(arch, predictions):
     full = CB.get_config(arch)
     cfg = chip_smoke.train_cut(full, rec["depth"])
     for field in ("d_model", "num_heads", "num_kv_heads", "d_ff",
-                  "vocab_size", "num_experts", "num_experts_per_tok"):
+                  "vocab_size", "num_router_experts", "num_experts_per_tok"):
         assert getattr(cfg, field) == getattr(full, field)
+    assert cfg.num_experts == (
+        full.num_experts // chip_smoke.EXPERT_SHARE
+        if full.family == "hybrid_moe" else full.num_experts)
     assert rec["seq"] == dict(chip_smoke.FAMILY_TRAIN)[arch]
     assert rec["flash_nodes"] == chip_smoke.per_train_step(cfg)[0]
     assert rec["bound_ms"] > 0

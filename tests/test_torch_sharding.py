@@ -26,8 +26,11 @@ from repro_torch.launch.mesh import data_axis_size, make_abstract_mesh
 from repro_torch.models import model as M
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+# the port's configurations that the reference has (it has no
+# granite_4_0_h_small to compare with)
 ARCHS = sorted(p.stem for p in pathlib.Path(CB.__file__).parent.glob("*.py")
-               if p.stem not in ("__init__", "base"))
+               if p.stem not in ("__init__", "base")
+               and p.stem in JCB.ARCH_IDS)
 
 
 @pytest.fixture(scope="module")
