@@ -130,7 +130,8 @@ The LM training path, at full published width:
      model on the card and on the CPU (loss and grad norm within 1e-4
      relative); one step's parameter gradients at full width and 2 layers
      of each model on (4, 2048) tokens through the kernel (its Function:
-     kernel forward, the reference's gradient recomputed) against the
+     kernel forward; the reference's gradient recomputed, but for the bf16
+     SSD scan, whose backward is its own kernel, one launch a layer) against the
      plain path (``backend="torch"``): float32 per tensor within 1e-4
      of its largest gradient, bf16 per tensor at most 2x as far from the
      float32 plain gradient as the bf16 plain path's; then ``Trainer.run`` for
@@ -139,7 +140,8 @@ The LM training path, at full published width:
      synthetic stream, float32 params and Adam state, bf16 activations,
      remat: launches per step as derived from the code (one per block in
      the forward and one in the remat recompute: 32 flash, 48 SSD; one
-     backward recompute per block; one ``adamw_sumsq`` and one
+     backward recompute per flash block and one SSD backward-kernel
+     launch per SSD block, none recomputed; one ``adamw_sumsq`` and one
      ``adamw_update`` launch, the optimizer's), every gradient after step
      1 finite and not all zero, every loss finite and the last 3 below the first 3;
      median step time, tokens/s, peak memory, and one traced step. The
@@ -261,7 +263,8 @@ Training the remaining families, after phase 16, one model at a time:
      every gradient after step 1 finite and not all zero, every loss finite
      and the last 3 below the first 3, flash launches and backward
      recomputes per step as derived from the config (2 / 1, 4 / 2, 8 / 4,
-     0 / 0, 2 / 1; granite's SSD scan 18 / 9), the optimizer's two kernels
+     0 / 0, 2 / 1; granite's SSD scan 18 / 0 and 9 backward-kernel
+     launches), the optimizer's two kernels
      launched once each a step, the
      peak allocation over what was allocated before the
      Trainer within 5% of the prediction, the median step at or above the
@@ -302,7 +305,12 @@ The kernels at a train cell's own inputs, after phase 18:
      within 2**-6 (four units of bf16 roundoff) of the element's terms'
      magnitude plus its own, and the same bits on two launches; their lines
      (graph-replay ms, plain ms, bound, SDPA's ms at the same scale) with
-     phase 18's launches of that model.
+     phase 18's launches of that model. Then the SSD scan's backward
+     kernel at mamba2-130m's (16, 2048, 24, 64, 128) and granite's (4,
+     4096, 128, 64, 128), chunk 256: dX, dAdt, dBc and dCc each within
+     2**-6 of its plain version (``ssd_chunked_backward``) in norm, the
+     same bits on two calls; lines with the float32 recompute's ms beside
+     (what the backward ran before) and the launches of phases 13 and 18.
 
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
@@ -1989,14 +1997,26 @@ def kernel_layers(cfg, kernel="flash_attention") -> int:
 
 
 def per_train_step(cfg, kernel="flash_attention") -> tuple:
-    """(launches, backward recomputes) of ``kernel`` in one train step, from
-    the config: each layer of :func:`kernel_layers` launches it in the
-    forward and, with ``cfg.remat``, again when ``torch.utils.checkpoint``
-    recomputes its block in the backward (each forward launches through the
-    kernel's Function); each Function's backward recomputes the reference's
-    function once."""
+    """(launches, backward recomputes) of ``kernel`` in one train step on the
+    card, from the config: each layer of :func:`kernel_layers` launches it
+    in the forward and, with ``cfg.remat``, again when
+    ``torch.utils.checkpoint`` recomputes its block in the backward (each
+    forward launches through the kernel's Function); each Function's
+    backward recomputes the reference's function once, but the SSD scan's
+    with bfloat16 activations, which launches the backward kernel instead
+    (:func:`ssd_backward_launches`)."""
     n = kernel_layers(cfg, kernel)
-    return n * (2 if cfg.remat else 1), n
+    return n * (2 if cfg.remat else 1), n - ssd_backward_launches(cfg, kernel)
+
+
+def ssd_backward_launches(cfg, kernel="ssd_scan") -> int:
+    """Launches of the SSD scan's backward kernel in one train step on the
+    card: one per SSD layer when the activations are bfloat16, none in
+    float32 (each backward recomputes ``ssd_chunked``) or for another
+    kernel."""
+    if kernel != "ssd_scan" or cfg.dtype != "bfloat16":
+        return 0
+    return kernel_layers(cfg, "ssd_scan")
 
 
 def train_counts() -> dict:
@@ -2064,6 +2084,9 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
           f"{ {k: (c1[k], c1[f'{k}/backward']) for k in LM_KERNELS} } "
           f"(derived {derived}: {cfg.num_layers} blocks, forward and remat "
           f"recompute)")
+    check(c1["ssd_scan_backward"] == ssd_backward_launches(cfg),
+          f"{arch} train step 1: {c1['ssd_scan_backward']} SSD backward "
+          f"kernel launches (derived {ssd_backward_launches(cfg)})")
     check(c1["adamw_sumsq"] == c1["adamw_update"] == 1,
           f"{arch} train step 1: {c1['adamw_sumsq']} adamw_sumsq and "
           f"{c1['adamw_update']} adamw_update launches (1 each)")
@@ -2094,6 +2117,10 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
           f"recomputes "
           f"{ {k: (counts[k], counts[f'{k}/backward']) for k in LM_KERNELS} }"
           f" ({derived} a step)")
+    check(counts["ssd_scan_backward"] == ssd_backward_launches(cfg) * steps,
+          f"{arch} Trainer.run, {steps} steps: "
+          f"{counts['ssd_scan_backward']} SSD backward kernel launches "
+          f"({ssd_backward_launches(cfg)} a step)")
     check(counts["adamw_sumsq"] == counts["adamw_update"] == steps,
           f"{arch} Trainer.run, {steps} steps: {counts['adamw_sumsq']} "
           f"adamw_sumsq and {counts['adamw_update']} adamw_update launches "
@@ -2123,6 +2150,7 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
            "launches": counts[kernel],
            "backward_recomputes": counts[f"{kernel}/backward"],
            "kernel_launches": {k: counts[k] for k in LM_KERNELS},
+           "ssd_backward_launches": counts["ssd_scan_backward"],
            "adamw_launches": {k: counts[k]
                               for k in ("adamw_sumsq", "adamw_update")},
            "grad_norms": [h["grad_norm"] for h in tr.history]}
@@ -2197,7 +2225,8 @@ def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
     model = M.init(cfg, seed=args.seed, device=dev).requires_grad_(True)
     set_vlm_gates(torch, model)
     batch = device_batch(torch, np, cfg, dev, args.seed, seq=seq)
-    launches, recomputes = per_train_step(cfg, kernel)
+    # counted over the float32 runs, which recompute in every backward
+    launches, recomputes = per_train_step(cfg32, kernel)
 
     def grads(c, backend):
         for p in model.parameters():
@@ -2221,8 +2250,9 @@ def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
     check(n[kernel] == 0 and m[kernel] == launches
           and n[f"{kernel}/backward"] == recomputes
           and m[f"{kernel}/backward"] == 2 * recomputes
-          and all(n[k] == 0 and m[k] == per_train_step(cfg, k)[0]
-                  for k in LM_KERNELS),
+          and all(n[k] == 0 and m[k] == per_train_step(cfg32, k)[0]
+                  for k in LM_KERNELS)
+          and m["ssd_scan_backward"] == 0,
           f"{arch} gradient check: the kernel path launched {kernel} "
           f"{m[kernel]} times (derived {launches}: forward and remat "
           f"recompute), the plain path {n[kernel]}; "
@@ -2240,6 +2270,11 @@ def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
           f"{worst32} {r32[worst32]:.3e})")
     del k32
     k16 = rel(grads(cfg, "auto"), g32)
+    bwd = train_counts()["ssd_scan_backward"]
+    check(bwd == ssd_backward_launches(cfg, kernel),
+          f"{arch} gradient check: the bf16 kernel path launched the SSD "
+          f"backward kernel {bwd} times (derived "
+          f"{ssd_backward_launches(cfg, kernel)})")
     p16 = rel(grads(cfg, "torch"), g32)
     ratio = {k: k16[k] / max(p16[k], BF16_GRAD_FLOOR) for k in k16}
     worst16 = max(ratio, key=ratio.get)
@@ -2251,7 +2286,7 @@ def lm_grad_check(torch, np, cfg, kernel, args, dev, seq=LM_SEQ) -> dict:
           f"{p16[worst16]:.3e}")
     rep = {"layers": cfg.num_layers, "launches": m[kernel],
            "backward_recomputes": m[f"{kernel}/backward"]
-           - n[f"{kernel}/backward"],
+           - n[f"{kernel}/backward"], "bf16_ssd_backward_launches": bwd,
            "f32_worst": r32[worst32], "f32_worst_tensor": worst32,
            "f32_median": float(np.median(list(r32.values()))),
            "bf16_worst_ratio": ratio[worst16],
@@ -3863,6 +3898,92 @@ def cell_kernel_phase(torch, args, dev, report) -> list:
     return rows
 
 
+# phase 21: the SSD scan's backward kernel at the train cells' shapes, (B,
+# S, H, P, N) with chunk 256: mamba2-130m's (16, 2048) tokens and
+# granite-4.0-h-small's (4, 4096), with the trainers that launch it there
+SSD_BACKWARD_CELLS = (("mamba2-130m", (16, 2048, 24, 64, 128)),
+                      ("granite-4.0-h-small", (4, 4096, 128, 64, 128)))
+# its bar, per gradient, stated before the run: |kernel - plain| <= bar x
+# |plain| in norm, the plain version computing in float32 from the same
+# bf16 inputs and rounding only its outputs. The kernel rounds its
+# products' operands to bf16 (u = 2**-8) at two stages and its outputs
+# once; 2**-6 is four units, as CELL_BAR
+SSD_BACKWARD_BAR = 2.0 ** -6
+
+
+def ssd_backward_rows(torch, args, dev, report) -> list:
+    """Phase 21's SSD backward lines: at each shape of
+    ``SSD_BACKWARD_CELLS`` on seeded bf16 inputs, the backward kernel
+    (``ssd_scan.kernel_backward``) against its plain version
+    (``ssd_chunked_backward``) by the ``SSD_BACKWARD_BAR`` bar for each of
+    dX, dAdt, dBc and dCc, the same bits on two calls, and its line:
+    graph-replay ms beside its bound (``work_backward``), the plain
+    version's ms and the float32 recompute's (autograd of ``ssd_chunked``,
+    what the backward ran before), with the launches of the trainer that
+    ran the model."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    # the trainers' runs: phase 13's mamba2-130m, phase 18's families
+    trainers = {"mamba2-130m": report.get("lm_train", {}).get(
+        "train", {}).get("ssd_scan", {})}
+    for arch, _ in SSD_BACKWARD_CELLS:
+        fam = report.get("family_train", {}).get(arch)
+        if fam is not None:
+            trainers[arch] = fam["train"]
+    rows, found = [], {}
+    for arch, (B, S, H, P, N) in SSD_BACKWARD_CELLS:
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+        def randn(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        X, Bc, Cc = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        Adt = -F.softplus(randn(B, S, H, dtype=torch.float32)) * 0.5
+        dY = randn(B, S, H, P)
+        ins = (X, Adt, Bc, Cc, dY)
+        kern = lambda: ssd_mod.kernel_backward(*ins, chunk=256)  # noqa: E731
+        got, again = kern(), kern()
+        want = ssd_mod.ssd_chunked_backward(*ins, 256)
+        torch.cuda.synchronize()
+        gaps = {n: float((g.float() - w.float()).norm() / w.float().norm())
+                for n, g, w in zip(("dX", "dAdt", "dBc", "dCc"), got, want)}
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        f = found[f"ssd_scan_backward/{arch}"] = {
+            "norm_gap": gaps, "max_abs_err": err,
+            "same_bits": all(torch.equal(a, b) for a, b in zip(got, again))}
+        del got, again, want
+
+        def recompute():
+            return _build.recompute_grads(
+                lambda *a: ssd_mod.ssd_chunked(*a, 256)[0], ins[:4],
+                (True,) * 4, dY)
+
+        tr = trainers.get(arch, {})
+        row = kernel_row(torch, f"ssd_scan_backward/{arch}", "ssd_scan",
+                         "none (the reference differentiates ssd_chunked)",
+                         kern, lambda: ssd_mod.ssd_chunked_backward(*ins, 256),
+                         None, ssd_mod.work_backward(X, Bc, 256),
+                         torch.bfloat16, tr.get("ssd_backward_launches"),
+                         err, f" {(B, S, H, P, N)} chunk 256")
+        row.update(f, recompute_ms=time_plain_ms(torch, recompute, iters=2),
+                   train_step_ms=tr.get("step_ms"))
+        print(f"ssd_scan_backward/{arch}: {json.dumps(row)}")
+        rows.append(row)
+        del X, Bc, Cc, Adt, dY, ins
+        torch.cuda.empty_cache()
+    report["ssd_backward"] = found
+    for name, f in found.items():
+        check(all(g <= SSD_BACKWARD_BAR for g in f["norm_gap"].values()),
+              f"{name}: every gradient within {SSD_BACKWARD_BAR} of its plain "
+              f"version in norm ({f['norm_gap']})")
+        check(f["same_bits"], f"{name}: two calls give the same bits")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
@@ -4368,6 +4489,7 @@ def main(argv=None) -> int:
 
     # -- 21. the LM kernels at a train cell's own inputs -----------------------
     kernels += cell_kernel_phase(torch, args, dev, report)
+    kernels += ssd_backward_rows(torch, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

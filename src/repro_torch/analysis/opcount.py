@@ -20,8 +20,9 @@ What each op counts, per device:
 - FLOPs: the matmul family (``mm``, ``addmm``, ``bmm``, ``baddbmm``,
   convolutions) from ``torch.utils.flop_counter``'s formulas; the kernel
   ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``,
-  ``repro_torch::adamw_sumsq``, ``repro_torch::adamw_update``) their
-  modules' work functions (:data:`KERNEL_WORK`); :data:`MOVES` (copies,
+  ``repro_torch::ssd_scan_backward``, ``repro_torch::adamw_sumsq``,
+  ``repro_torch::adamw_update``) their modules' work functions
+  (:data:`KERNEL_WORK`); :data:`MOVES` (copies,
   casts, fills, concatenation) none; every other op 1 per output element,
   as the reference counts its elementwise and reduce ops.
 - HBM bytes: views and aliases (an op whose result aliases an input
@@ -69,6 +70,8 @@ KERNEL_WORK = {
         _fa.work(q, k),
     "repro_torch.ssd_scan": lambda X, Adt, Bc, Cc, chunk:
         _ssd.work(X, Bc, chunk),
+    "repro_torch.ssd_scan_backward": lambda X, Adt, Bc, Cc, dY, chunk:
+        _ssd.work_backward(X, Bc, chunk),
     "repro_torch.adamw_sumsq": lambda grads, replicas:
         _aw.sumsq_work(grads),
     "repro_torch.adamw_update": lambda params, grads, m, v, decays, *_:

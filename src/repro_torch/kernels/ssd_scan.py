@@ -40,25 +40,38 @@ Pallas backward kernel to port). Whenever grad is enabled and an input
 requires it, :func:`ssd_scan` goes through :class:`SSDScan`: its forward
 is the kernel (all three bf16 launches, or the float32 one; the plain
 version for CPU tensors and ``backend="torch"``), saving X, Adt, Bc and
-Cc; its backward recomputes :func:`ssd_chunked` from them in its second
-role and returns autograd's gradients for all four (Adt carries the
-gradient on to ``A_log`` and ``dt``); :data:`backward_recomputes` counts
-these. The forward on the card never runs :func:`ssd_chunked`. Launching
-the kernel on such inputs any other way (:func:`kernel_forward` under
-grad) raises.
+Cc. Its backward, for bfloat16 X, Bc, Cc on the card (or fake ones, in a
+dry-run's trace), is a second registered op,
+``torch.ops.repro_torch.ssd_scan_backward`` (X, Adt, Bc, Cc, dY, chunk)
+-> (dX, dAdt, dBc, dCc): its CUDA implementation is the
+hand-written backward (:func:`kernel_backward`, seven launches that count
+one ``ssd_scan_backward``), its CPU implementation
+:func:`ssd_chunked_backward`, the same decomposition in plain PyTorch,
+and its fake implementation the four shapes (one node, counted as
+:func:`work_backward`). For CPU tensors, float32 inputs and
+``backend="torch"`` the backward recomputes :func:`ssd_chunked` from the
+saved inputs in its second role and returns autograd's gradients for all
+four; :data:`backward_recomputes` counts these. Either way Adt carries the
+gradient on to ``A_log`` and ``dt``. While a profiler records, every
+backward adds one to the counter ``ssd/backward_calls`` and every launch
+of the backward kernel one to ``ssd/backward_kernel_calls``. The forward
+on the card never runs :func:`ssd_chunked`. Launching the kernel on such
+inputs any other way (:func:`kernel_forward` under grad) raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
-# launches of the kernel in this process (the plain version counts none)
-launches: Dict[str, int] = {"ssd_scan": 0}
-# backward passes of SSDScan (each recomputes ssd_chunked)
+# launches of the kernels in this process (the plain versions count none)
+launches: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_backward": 0}
+# backward passes of SSDScan that recompute ssd_chunked under autograd
 backward_recomputes: Dict[str, int] = {"ssd_scan": 0}
 
 DEFAULT_CHUNK = 128
@@ -79,11 +92,16 @@ _SIGNATURES = {
     # X, Adt, Bc, Cc, states, Y, B, S, H, P, N, Q, strides[10], stream
     "ssd_chunk_scan_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6
     + [ctypes.c_void_p, ctypes.c_void_p],
+    # X, Adt, Bc, Cc, dY, dX, dAdt, dBc, dCc, states, decay, dstates, cs,
+    # rowpart, B, S, H, P, N, Q, strides[10], stream
+    "ssd_scan_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 6
+    + [ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
 def reset_launches() -> None:
     launches["ssd_scan"] = 0
+    launches["ssd_scan_backward"] = 0
     backward_recomputes["ssd_scan"] = 0
 
 
@@ -120,6 +138,21 @@ def scratch_bytes(batch: int, seq: int, heads: int, chunk: int,
     (25,168,896 B at the mamba2-130m prefill (4, 2048, 24, 256, 64,
     128))."""
     return 4 * batch * heads * (seq // chunk) * (head_dim * state + 1)
+
+
+def backward_smem_bytes(chunk: int, head_dim: int, state: int) -> int:
+    """Shared memory of the backward kernel's largest block (bfloat16): the
+    larger of the forward's chunk-state pass (which the backward also runs
+    for the state gradient's contributions), the dX pass (the key tile's B
+    and X, two stages of the query tile's C and dY, the chunk's cumsum and
+    5 x 64 f32 column sums) and the dB / dC pass (two stages of two (64,
+    P) tiles and their 2 x 64 cumsums, two (64, N) tiles); 82,176 B at
+    mamba2-130m (Q, P, N) = (256, 64, 128)."""
+    P, N, Q = head_dim, state, chunk
+    states = 2 * 2 * TILE * (min(P, TILE) + 8 + N + 8) + 4 * (Q + 4)
+    dx = 2 * 3 * TILE * (N + 8 + P + 8) + 4 * -(-Q // 4) * 4 + 4 * 5 * TILE
+    dbc = 2 * (2 * 2 * TILE * (P + 8) + 4 * 2 * TILE) + 2 * 2 * TILE * (N + 8)
+    return max(states, dx, dbc)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +224,95 @@ def ssd_chunked(X, A, Bc, Cc, chunk: int, init_state=None):
     return Y.to(X.dtype), carry
 
 
+def ssd_chunked_backward(X, A, Bc, Cc, dY, chunk: int):
+    """The gradients of :func:`ssd_chunked`'s Y (no initial state) with
+    respect to X, A, Bc and Cc, given dY: ``(dX, dA, dBc, dCc)`` in the
+    inputs' dtypes, by the decomposition the backward kernel follows,
+    explicit and without autograd. Per chunk, with cs the inclusive cumsum
+    of A over the chunk, L[i, j] = exp(cs_i - cs_j) (j <= i), e = exp(cs),
+    w = exp(cs_last - cs):
+
+    (a) the state entering each chunk, S_in, as :func:`ssd_chunked` has it;
+    (b) each chunk's contribution to the state gradient, sum_i e_i dY_i C_i^T;
+    (c) a reverse pass over the chunks: G, the gradient of the state
+        leaving each chunk (zero for the last);
+    (d) the chunk's terms: dX_j = sum_i (C_i.B_j) L_ij dY_i + w_j G B_j,
+        dC_i = sum_h sum_j (dY_i.X_j) L_ij B_j + e_i S_in^T dY_i, dB_j the
+        same with C_i and w_j X_j^T G, and d(cs)_k = sum_j M_kj - sum_i M_ik
+        + dY_k.(e_k S_in C_k) - X_k.(w_k G B_k), M_ij = (C_i.B_j)(dY_i.X_j)
+        L_ij; dA is d(cs) summed from the chunk's end, plus <G, S_out>.
+
+    The products run in the operands' promoted dtype, the states in it or
+    float32, as :func:`ssd_chunked`'s do."""
+    b, l, h, p = X.shape
+    n = Bc.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence length {l} is not a multiple of the SSD "
+                         f"chunk {chunk}")
+    ct = torch.promote_types(
+        torch.promote_types(torch.promote_types(X.dtype, A.dtype),
+                            torch.promote_types(Bc.dtype, Cc.dtype)),
+        dY.dtype)
+    st = torch.promote_types(ct, torch.float32)
+    c, q = l // chunk, chunk
+    Xc = X.to(ct).reshape(b, c, q, h, p)
+    dYc = dY.to(ct).reshape(b, c, q, h, p)
+    Ac = A.to(ct).reshape(b, c, q, h).movedim(-1, 1)       # (b, h, c, q)
+    Bb = Bc.to(ct).reshape(b, c, q, n)
+    Cb = Cc.to(ct).reshape(b, c, q, n)
+    cs = torch.cumsum(Ac, dim=-1)
+    e = torch.exp(cs)                                      # exp(cs_i)
+    w = torch.exp(cs[..., -1:] - cs)                       # exp(cs_last - cs_j)
+    chunk_decay = torch.exp(cs[..., -1]).to(st)            # (b, h, c)
+
+    # (a) the state entering each chunk, and the one leaving it
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bb, w, Xc).to(st)
+    carry = torch.zeros((b, h, p, n), dtype=st, device=X.device)
+    s_in, s_out = [], []
+    for ci in range(c):
+        s_in.append(carry)
+        carry = carry * chunk_decay[:, :, ci, None, None] + states[:, ci]
+        s_out.append(carry)
+    S_in = torch.stack(s_in, dim=1)                        # (b, c, h, p, n)
+    S_out = torch.stack(s_out, dim=1)
+
+    # (b) each chunk's contribution to the state gradient, (c) the reverse
+    # pass: G[ci] is the gradient of the state leaving chunk ci
+    contrib = torch.einsum("bclhp,bhcl,bcln->bchpn", dYc, e, Cb).to(st)
+    carry = torch.zeros((b, h, p, n), dtype=st, device=X.device)
+    grads = [None] * c
+    for ci in reversed(range(c)):
+        grads[ci] = carry
+        carry = carry * chunk_decay[:, :, ci, None, None] + contrib[:, ci]
+    G = torch.stack(grads, dim=1)                          # (b, c, h, p, n)
+
+    # (d) the chunk's terms
+    Lm = torch.exp(segsum(Ac))                             # (b, h, c, i, j)
+    SL = torch.einsum("bcin,bcjn->bcij", Cb, Bb)[:, None] * Lm
+    dP = torch.einsum("bcihp,bcjhp->bhcij", dYc, Xc)
+    dPL = dP * Lm
+    Sc, Gc = S_in.to(ct), G.to(ct)
+    dX = torch.einsum("bhcij,bcihp->bcjhp", SL, dYc) \
+        + torch.einsum("bhcj,bcjn,bchpn->bcjhp", w, Bb, Gc)
+    dC = torch.einsum("bhcij,bcjn->bcin", dPL, Bb) \
+        + torch.einsum("bhci,bcihp,bchpn->bcin", e, dYc, Sc)
+    dB = torch.einsum("bhcij,bcin->bcjn", dPL, Cb) \
+        + torch.einsum("bhcj,bcjhp,bchpn->bcjn", w, Xc, Gc)
+    M = SL * dP                                            # S o dP o L
+    y_off = torch.einsum("bhci,bcin,bchpn->bcihp", e, Cb, Sc)
+    dx_off = torch.einsum("bhcj,bcjn,bchpn->bcjhp", w, Bb, Gc)
+    dcs = M.sum(-1) - M.sum(-2) \
+        + torch.einsum("bcihp,bcihp->bhci", dYc, y_off) \
+        - torch.einsum("bcjhp,bcjhp->bhcj", Xc, dx_off)
+    leaving = torch.einsum("bchpn,bchpn->bhc", G, S_out).to(ct)
+    dA = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,)) \
+        + leaving[..., None]
+    return (dX.reshape(b, l, h, p).to(X.dtype),
+            dA.movedim(1, -1).reshape(b, l, h).to(A.dtype),
+            dB.reshape(b, l, n).to(Bc.dtype),
+            dC.reshape(b, l, n).to(Cc.dtype))
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -259,6 +381,24 @@ def work(X, Bc, chunk: int) -> tuple:
     return nbytes, B * H * (S // chunk) * per_chunk
 
 
+def work_backward(X, Bc, chunk: int) -> tuple:
+    """(bytes, operations) of the chunked SSD scan's backward: X, Adt (f32),
+    Bc, Cc and dY read once, dX, dAdt (f32), dBc and dCc written once; per
+    (b, h, chunk) and (position, position j <= it) pair of the chunk C.B^T
+    (2 N), dY.X^T (2 P), dX's scores.dY (2 P), dC's and dB's (2 N each),
+    as :func:`work` counts the causal pairs, plus six (Q, P, N) products
+    (2 Q N P each): the recomputed states, the state gradient's
+    contributions, the inter-chunk terms of dX, dC and dB, and the incoming
+    state read out for d(cs)."""
+    B, S, H, P = X.shape
+    N = Bc.shape[-1]
+    nbytes = (3 * B * S * H * P + 4 * B * S * N) * X.element_size() \
+        + 2 * B * S * H * 4
+    per_chunk = chunk * (chunk + 1) // 2 * (6 * N + 4 * P) \
+        + 12 * chunk * N * P
+    return nbytes, B * H * (S // chunk) * per_chunk
+
+
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
                          device_types="cpu")
 def ssd_scan_op(X: torch.Tensor, Adt: torch.Tensor, Bc: torch.Tensor,
@@ -278,6 +418,42 @@ def _ssd_scan_fake(X, Adt, Bc, Cc, chunk):
     return torch.empty(X.shape, dtype=X.dtype, device=X.device)
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_backward", mutates_args=(),
+                         device_types="cpu")
+def ssd_scan_backward_op(X: torch.Tensor, Adt: torch.Tensor,
+                         Bc: torch.Tensor, Cc: torch.Tensor,
+                         dY: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The registered backward: (dX, dAdt, dBc, dCc) of Y given dY, the
+    plain version on the CPU, the kernel on the card
+    (:func:`kernel_backward`); contiguous, as the kernel writes them."""
+    return tuple(g.contiguous()
+                 for g in ssd_chunked_backward(X, Adt, Bc, Cc, dY, chunk))
+
+
+@ssd_scan_backward_op.register_kernel("cuda")
+def _ssd_scan_backward_cuda(X, Adt, Bc, Cc, dY, chunk):
+    return kernel_backward(X, Adt, Bc, Cc, dY, chunk=chunk)
+
+
+@ssd_scan_backward_op.register_fake
+def _ssd_scan_backward_fake(X, Adt, Bc, Cc, dY, chunk):
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (X, Adt, Bc, Cc))
+
+
+def takes_backward_kernel(X, Adt, Bc, Cc, backend: str) -> bool:
+    """Whether :class:`SSDScan`'s backward runs the backward op on these
+    saved inputs: bfloat16 X, Bc, Cc and float32 Adt on the card (CUDA
+    tensors, or fake ones, so that a dry-run's trace holds what the card
+    runs), with any backend but ``"torch"``; everything else recomputes
+    :func:`ssd_chunked`."""
+    return backend != "torch" and (X.is_cuda or is_fake(X)) \
+        and X.dtype == Bc.dtype == Cc.dtype == torch.bfloat16 \
+        and Adt.dtype == torch.float32
+
+
 def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
     if backend == "torch":
         return ssd_chunked(X, Adt, Bc, Cc, chunk)[0]
@@ -286,21 +462,30 @@ def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
 
 
 class SSDScan(torch.autograd.Function):
-    """The kernel's forward; the backward recomputes :func:`ssd_chunked`
-    from the saved X, Adt, Bc, Cc and returns its autograd gradients."""
+    """The kernel's forward; the backward is the backward op for bfloat16
+    inputs on the card (:func:`takes_backward_kernel`), else it recomputes
+    :func:`ssd_chunked` from the saved X, Adt, Bc, Cc and returns its
+    autograd gradients."""
 
     @staticmethod
     def forward(ctx, X, Adt, Bc, Cc, chunk, backend):
         ctx.save_for_backward(X, Adt, Bc, Cc)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.backend = chunk, backend
         return _forward(X, Adt, Bc, Cc, chunk, backend)
 
     @staticmethod
     def backward(ctx, grad_y):
-        backward_recomputes["ssd_scan"] += 1
-        grads = _build.recompute_grads(
-            lambda *a: ssd_chunked(*a, ctx.chunk)[0], ctx.saved_tensors,
-            ctx.needs_input_grad[:4], grad_y)
+        spans.count("ssd/backward_calls", 1)
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad[:4]
+        if takes_backward_kernel(*saved, ctx.backend):
+            grads = ssd_scan_backward_op(*saved, grad_y.contiguous(),
+                                         ctx.chunk)
+            grads = [g if n else None for g, n in zip(grads, needs)]
+        else:
+            backward_recomputes["ssd_scan"] += 1
+            grads = _build.recompute_grads(
+                lambda *a: ssd_chunked(*a, ctx.chunk)[0], saved, needs,
+                grad_y)
         return (*grads, None, None)
 
 
@@ -345,3 +530,57 @@ def kernel_forward(X, Adt, Bc, Cc, *, chunk: int) -> torch.Tensor:
                 _build.DTYPE_CODES[X.dtype], stream), "ssd_scan_fwd")
     launches["ssd_scan"] += 1
     return Y
+
+
+def kernel_backward(X, Adt, Bc, Cc, dY, *, chunk: int) -> tuple:
+    """Launch the CUDA backward on bfloat16 CUDA tensors: (dX, dAdt, dBc,
+    dCc) of the scan's Y given dY, dAdt float32, the others bfloat16, each
+    contiguous. The forward's state passes run again, then the state
+    gradient's contributions, the reverse pass over the chunks, the dX,
+    the dB / dC and the dAdt passes (seven launches, one count of
+    ``ssd_scan_backward``). Its float32 scratch lives only for the call:
+    the recomputed (B, H, S / Q, P, N) states and (B, H, S / Q) decays,
+    the state gradients (B, H, S / Q, P, N), the cumsums (B, H, S) and the
+    d(cs) parts of each 64-row key tile (B, H, S / Q, ceil(Q / 64), Q);
+    217 MB at mamba2-130m's train step, 580 MB at granite's."""
+    _build.use_kernel(X, "cuda", "ssd_scan")
+    _check(X, Adt, Bc, Cc, chunk)
+    if X.dtype != torch.bfloat16 or dY.dtype != X.dtype \
+            or dY.shape != X.shape or dY.device != X.device:
+        raise ValueError(f"the backward kernel takes bfloat16 X, Bc, Cc and "
+                         f"a dY of X's shape and dtype; got X {X.dtype}, dY "
+                         f"{dY.dtype} {tuple(dY.shape)}")
+    B, S, H, P = X.shape
+    N = Bc.shape[-1]
+    smem = backward_smem_bytes(chunk, P, N)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"chunk {chunk} at P={P}, N={N} needs {smem} B of "
+                         f"shared memory in the backward; a block may use "
+                         f"{_build.SMEM_PER_BLOCK}")
+    dY = dY.contiguous()
+    outs = (torch.empty((B, S, H, P), dtype=X.dtype, device=X.device),
+            torch.empty((B, S, H), dtype=torch.float32, device=X.device),
+            torch.empty((B, S, N), dtype=X.dtype, device=X.device),
+            torch.empty((B, S, N), dtype=X.dtype, device=X.device))
+    if X.numel() == 0:
+        return outs
+    nc, tiles = S // chunk, -(-chunk // TILE)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    states = torch.empty((B, H, nc, P, N), **f32)
+    decay = torch.empty((B, H, nc), **f32)
+    dstates = torch.empty((B, H, nc, P, N), **f32)
+    cs = torch.empty((B, H, nc, chunk), **f32)
+    rowpart = torch.empty((B, H, nc, tiles, chunk), **f32)
+    strides = (ctypes.c_longlong * 10)(*X.stride()[:3], *Adt.stride(),
+                                       *Bc.stride()[:2], *Cc.stride()[:2])
+    with torch.cuda.device(X.device):
+        lib, stream = library(), torch.cuda.current_stream().cuda_stream
+        _build.raise_on(lib.ssd_scan_bwd(
+            X.data_ptr(), Adt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            dY.data_ptr(), *(t.data_ptr() for t in outs), states.data_ptr(),
+            decay.data_ptr(), dstates.data_ptr(), cs.data_ptr(),
+            rowpart.data_ptr(), B, S, H, P, N, chunk, strides, stream),
+            "ssd_scan_bwd")
+    launches["ssd_scan_backward"] += 1
+    spans.count("ssd/backward_kernel_calls", 1)
+    return outs

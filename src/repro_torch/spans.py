@@ -30,7 +30,10 @@ experts and combine; backward ``MoEExpertsBackward``), ``moe/shared``,
 slot), ``moe/choices`` (G·S·k) and ``moe/slots`` (G·E·C); for a layer
 holding a share of the experts ``moe/held_choices`` (choices routed to a
 held expert), ``moe/held_kept`` (those that found a slot) and
-``moe/held_slots`` (G·held·C).
+``moe/held_slots`` (G·held·C). Counters of the SSD scan's backward
+(``kernels/ssd_scan.py``): ``ssd/backward_calls`` (every backward of
+``SSDScan``) and ``ssd/backward_kernel_calls`` (each launch of the
+backward kernel).
 """
 from __future__ import annotations
 

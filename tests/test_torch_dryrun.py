@@ -335,7 +335,7 @@ for name, pa, pb in [("sharded", (Shard(0), Replicate()),
 mesh = make_fake_mesh((4, 2), ("data", "model"), device="cpu")
 cells = {}
 for arch, kinds in (("llama3.2-1b", ("train", "prefill", "decode")),
-                    ("mamba2-130m", ("prefill", "decode"))):
+                    ("mamba2-130m", ("train", "prefill", "decode"))):
     cfg = CB.get_config(arch, smoke=True)
     for kind in kinds:
         shape = CB.ShapeConfig("t", 64, 8, kind)
@@ -345,7 +345,9 @@ for arch, kinds in (("llama3.2-1b", ("train", "prefill", "decode")),
         rec = {"flops": c.summary.flops, "hbm": c.summary.hbm_bytes,
                "coll": c.summary.collective_bytes, "layers": cfg.num_layers,
                "flash": c.kernel_nodes("flash_attention"),
-               "ssd": c.kernel_nodes("ssd_scan"), "temp": c.peak_bytes,
+               "ssd": c.kernel_nodes("ssd_scan"),
+               "ssd_backward": c.kernel_nodes("ssd_scan_backward"),
+               "temp": c.peak_bytes,
                "adamw": [c.kernel_nodes("adamw_sumsq"),
                          c.kernel_nodes("adamw_update")],
                "args": DR.local_bytes(spec.args)}
@@ -359,7 +361,8 @@ for arch, kinds in (("llama3.2-1b", ("train", "prefill", "decode")),
                                      for p in params),
                 "flops": c.summary.flops,
                 "kernel_nodes": c.kernel_nodes("flash_attention")
-                + c.kernel_nodes("ssd_scan")}
+                + c.kernel_nodes("ssd_scan")
+                + c.kernel_nodes("ssd_scan_backward")}
         cells[f"{arch} {kind}"] = rec
 out["cells"] = cells
 print(json.dumps(out))
@@ -396,7 +399,7 @@ def test_counter_counts_a_sharded_matmul_per_device(mesh_run, case, flops,
 @pytest.mark.parametrize("cell", ["llama3.2-1b train", "llama3.2-1b prefill",
                                   "llama3.2-1b decode",
                                   "mamba2-130m prefill",
-                                  "mamba2-130m decode"])
+                                  "mamba2-130m decode", "mamba2-130m train"])
 def test_smoke_cell_traces_on_a_fake_4x2_mesh(mesh_run, cell):
     rec = mesh_run["cells"][cell]
     assert rec["flops"] > 0 and rec["hbm"] > 0 and rec["args"] > 0
@@ -408,7 +411,8 @@ def test_smoke_cell_traces_on_a_fake_4x2_mesh(mesh_run, cell):
 
 @pytest.mark.parametrize("cell,flash,ssd_nodes", [
     ("llama3.2-1b train", 2, 0), ("llama3.2-1b prefill", 1, 0),
-    ("llama3.2-1b decode", 0, 0), ("mamba2-130m prefill", 0, 1)])
+    ("llama3.2-1b decode", 0, 0), ("mamba2-130m prefill", 0, 1),
+    ("mamba2-130m train", 0, 2)])
 def test_kernel_nodes_per_layer(mesh_run, cell, flash, ssd_nodes):
     """One flash / SSD node per block in a forward; the train step runs
     each block's forward twice (remat recomputes it in the backward);
@@ -416,6 +420,18 @@ def test_kernel_nodes_per_layer(mesh_run, cell, flash, ssd_nodes):
     rec = mesh_run["cells"][cell]
     assert rec["flash"] == flash * rec["layers"]
     assert rec["ssd"] == ssd_nodes * rec["layers"]
+
+
+@pytest.mark.parametrize("cell,nodes", [
+    ("mamba2-130m train", 1), ("mamba2-130m prefill", 0),
+    ("mamba2-130m decode", 0), ("llama3.2-1b train", 0)])
+def test_ssd_backward_nodes_per_layer(mesh_run, cell, nodes):
+    """A train step's bf16 SSD backward on the mesh is one
+    ``repro_torch::ssd_scan_backward`` node per SSD layer (the backward
+    kernel, as the card runs it; no recompute of ``ssd_chunked``); serving
+    and models without SSD layers run none."""
+    rec = mesh_run["cells"][cell]
+    assert rec["ssd_backward"] == nodes * rec["layers"]
 
 
 @pytest.mark.parametrize("cell,nodes", [
@@ -428,7 +444,7 @@ def test_optimizer_kernel_nodes(mesh_run, cell, nodes):
 
 
 @pytest.mark.parametrize("cell", ["llama3.2-1b train", "llama3.2-1b prefill",
-                                  "mamba2-130m prefill"])
+                                  "mamba2-130m prefill", "mamba2-130m train"])
 def test_seeded_cell_is_the_traced_cell_on_real_tensors(mesh_run, cell):
     """``build_cell(..., seed=0)`` gives the traced cell's placements on
     real tensors (the random init), and its step runs on that mesh (the

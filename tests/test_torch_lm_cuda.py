@@ -117,7 +117,7 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype, chunk):
     Cc = _randn(rng, (B, S, N), dtype, cuda)
     ssd.reset_launches()
     out = ops.ssd_scan(X, Adt, Bc, Cc, chunk=chunk)
-    assert ssd.launches == {"ssd_scan": 1}
+    assert ssd.launches == {"ssd_scan": 1, "ssd_scan_backward": 0}
     want = ops.ssd_scan(X, Adt, Bc, Cc, chunk=chunk, backend="torch")
     torch.cuda.synchronize()
     scale = want.float().abs().max()

@@ -109,7 +109,7 @@ def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
     ssd.reset_launches()
     ops.ssd_scan(*tt, chunk=32)
     ops.ssd_scan(*tt, chunk=32, backend="torch")
-    assert ssd.launches == {"ssd_scan": 0}
+    assert ssd.launches == {"ssd_scan": 0, "ssd_scan_backward": 0}
     with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
         ops.ssd_scan(*tt, chunk=32, backend="cuda")
 
