@@ -1784,7 +1784,7 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
                            randn((B, S, KV, D), dt)))
     errs = {}
     for name, q, k, v in flash_sets:
-        got = fa_mod.flash_attention(q, k, v, backend="cuda").float()
+        got = fa_mod.flash_attention(q, k, v).float()
         want = fa_mod.flash_attention(q, k, v, backend="torch").float()
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
@@ -1811,8 +1811,7 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
             -torch.nn.functional.softplus(randn((B, S, H), torch.float32))
             * 0.5, randn((B, S, N), dt), randn((B, S, N), dt), chunk))
     for name, X, Adt, Bc, Cc, chunk in ssd_sets:
-        got = ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
-                               backend="cuda").float()
+        got = ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk).float()
         want = ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
                                 backend="torch").float()
         torch.cuda.synchronize()
@@ -1827,14 +1826,14 @@ def lm_kernel_checks(torch, np, flash_in, ssd_in, dev) -> tuple:
 
     # no atomics and a fixed order of every sum: the same bits twice
     (q, k, v), _ = flash_in
-    check(torch.equal(fa_mod.flash_attention(q, k, v, backend="cuda"),
-                      fa_mod.flash_attention(q, k, v, backend="cuda")),
+    check(torch.equal(fa_mod.flash_attention(q, k, v),
+                      fa_mod.flash_attention(q, k, v)),
           "flash_attention: two bf16 launches at the main path's inputs "
           "give the same bits")
     (X, Adt, Bc, Cc), kw = ssd_in
     check(torch.equal(
-        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"], backend="cuda"),
-        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"], backend="cuda")),
+        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"]),
+        ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"])),
         "ssd_scan: two bf16 launches at the main path's inputs give the "
         "same bits")
 
@@ -1869,7 +1868,7 @@ def flash_runs(fa_mod, F, q, k, v) -> tuple:
     """The flash kernel, its plain version and SDPA (causal, GQA) on the
     same q, k, v."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return (lambda: fa_mod.flash_attention(q, k, v, backend="cuda"),
+    return (lambda: fa_mod.flash_attention(q, k, v),
             lambda: fa_mod.flash_attention(q, k, v, backend="torch"),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True,
@@ -1893,8 +1892,7 @@ def lm_kernel_rows(torch, flash_in, ssd_in, counts, errs, tag="") -> list:
                    errs["flash_attention"], tag),
         kernel_row(torch, "ssd_scan", "ssd_scan",
                    "src/repro/kernels/ssd_scan.py:70",
-                   lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
-                                            backend="cuda"),
+                   lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk),
                    lambda: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=chunk,
                                             backend="torch"),
                    None, ssd_mod.work(X, Bc, chunk), X.dtype,
@@ -1919,7 +1917,7 @@ def lm_f32_rows(torch, flash_in, ssd_in) -> list:
             ("ssd_scan",
              lambda b: ssd_mod.ssd_scan(X, Adt, Bc, Cc, chunk=kw["chunk"],
                                         backend=b), True)]:
-        got, want = run("cuda"), run("torch")
+        got, want = run("auto"), run("torch")
         torch.cuda.synchronize()
         errs[name] = float((got - want).abs().max())
         div = float(want.abs().max()) if scale else 1.0
@@ -2739,7 +2737,7 @@ def family_flash_row(torch, arch, q, k, v, launches) -> dict:
     for dt, tol in ((torch.bfloat16, dict(atol=6e-3, rtol=3e-2)),
                     (torch.float32, dict(atol=2e-5, rtol=1e-4))):
         a, b, c = (t.to(dt) for t in (q, k, v))
-        got = fa_mod.flash_attention(a, b, c, backend="cuda").float()
+        got = fa_mod.flash_attention(a, b, c).float()
         want = fa_mod.flash_attention(a, b, c, backend="torch").float()
         torch.cuda.synchronize()
         errs[dt] = float((got - want).abs().max())
@@ -2794,27 +2792,27 @@ MESH_RUNS = (("llama3.2-1b", "flash_attention", 3),
 
 
 class PlainCalls:
-    """Counts the LM kernel wrappers' plain-version calls (a
-    ``_build.use_kernel`` that answers False) while it is entered."""
+    """Counts the calls that ``_build.route`` sends anywhere but to a kernel
+    (``"plain"`` or ``"reference"``) while it is entered."""
 
     def __init__(self):
-        self.counts = {"flash_attention": 0, "ssd_scan": 0}
+        self.counts = {"plain": 0, "reference": 0}
 
     def __enter__(self):
         from repro_torch.kernels import _build
-        self._orig = orig = _build.use_kernel
+        self._orig = orig = _build.route
 
-        def counting(x, backend, name):
-            ok = orig(x, backend, name)
-            if not ok and name in self.counts:
-                self.counts[name] += 1
-            return ok
-        _build.use_kernel = counting
+        def counting(x, backend):
+            way = orig(x, backend)
+            if way in self.counts:
+                self.counts[way] += 1
+            return way
+        _build.route = counting
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import _build
-        _build.use_kernel = self._orig
+        _build.route = self._orig
 
 
 def mesh_train(torch, np, arch, kernel, steps, mesh, args, dev,
@@ -2868,10 +2866,10 @@ def mesh_train(torch, np, arch, kernel, steps, mesh, args, dev,
     for name in ("none", "mesh"):
         r = runs[name]
         check(all(n == per_step for n in r["launches_per_step"])
-              and r["plain_calls"][kernel] == 0,
+              and not any(r["plain_calls"].values()),
               f"{arch} {name} trainer: {r['launches_per_step']} {kernel} "
               f"launches a step (derived {per_step}), "
-              f"{r['plain_calls'][kernel]} plain-version calls")
+              f"{r['plain_calls']} calls off the kernels")
     check(all(np.isfinite(runs["mesh"]["losses"]))
           and rep["max_rel"] <= RTOL_MESH,
           f"{arch} on the (1, 1) NCCL mesh: losses and grad norms within "
@@ -3855,7 +3853,7 @@ def cell_kernel_phase(torch, args, dev, report) -> list:
                     "ssd_scan": lambda: runs["ssd_scan"][0](
                         "torch", X=X.abs(), Bc=Bc.abs(), Cc=Cc.abs())}
         for name, (run, lib, work, tag) in runs.items():
-            got, want = run("cuda").float(), run("torch").float()
+            got, want = run("auto").float(), run("torch").float()
             mag = absolute[name]().float()
             torch.cuda.synchronize()
             err = (got - want).abs()
@@ -3869,11 +3867,11 @@ def cell_kernel_phase(torch, args, dev, report) -> list:
                 "worst_err_over_bar": float(ratio.max()),
                 "worst_element": [float(t.reshape(-1)[worst])
                                   for t in (got, want, mag)],
-                "same_bits": bool(torch.equal(run("cuda"), run("cuda")))}
+                "same_bits": bool(torch.equal(run("auto"), run("auto")))}
             del got, want, mag, err, ratio
             row = kernel_row(torch, f"{name}/{arch}", name,
                              "src/repro/kernels/" + name + ".py",
-                             lambda: run("cuda"), lambda: run("torch"), lib,
+                             lambda: run("auto"), lambda: run("torch"), lib,
                              work, torch.bfloat16,
                              tr["kernel_launches"][name],
                              f["max_abs_err"], tag)
@@ -4236,7 +4234,7 @@ def main(argv=None) -> int:
         for case in (single_cases if name in ("leaf_values", "predict")
                      else grouped_cases):
             run = runners[name]
-            e = max_err(run("cuda", *case[1:], route=route),
+            e = max_err(run("auto", *case[1:], route=route),
                         run("torch", *case[1:]))
             torch.cuda.synchronize()
             check(e == 0.0, f"{name}{suffix} equals its plain version, "
@@ -4246,7 +4244,7 @@ def main(argv=None) -> int:
     zero = all(not bool(b.any()) for b in forest_eval._COUNTERS.values())
     check(zero, "the fused kernels' tile counters are back at zero")
 
-    leaves = grouped("cuda")
+    leaves = grouped("auto")
     cpu_leaves = forest_eval.leaf_values_grouped(
         X.cpu(), gid.cpu(), *(a.cpu() for a in fa), f["depth"].cpu())
     e = max_err(leaves.cpu(), cpu_leaves)
@@ -4261,11 +4259,11 @@ def main(argv=None) -> int:
     check(errs["tree_mean"] == 0.0, f"tree_mean kernel equals its plain "
           f"version (max abs err {errs['tree_mean']})")
     for name, on_card, on_cpu in [
-            ("predict_grouped", fused_grouped("cuda"),
+            ("predict_grouped", fused_grouped("auto"),
              forest_eval.predict_grouped(X.cpu(), gid.cpu(),
                                          *(a.cpu() for a in fa),
                                          f["depth"].cpu())),
-            ("predict", fused_single("cuda"),
+            ("predict", fused_single("auto"),
              forest_eval.predict(Xs.cpu(), *(a.cpu() for a in sa),
                                  depth=depth1))]:
         e = max_err(on_card.cpu(), on_cpu)
@@ -4303,20 +4301,20 @@ def main(argv=None) -> int:
         "predict": fused_work(work_s, Xs.shape[0]),
     }
     timed = {
-        "leaf_values_grouped": (lambda: grouped("cuda"),
+        "leaf_values_grouped": (lambda: grouped("auto"),
                                 lambda: grouped("torch")),
-        "leaf_values_grouped/global": (lambda: grouped("cuda",
+        "leaf_values_grouped/global": (lambda: grouped("auto",
                                                        route="global"),
                                        lambda: grouped("torch")),
-        "leaf_values": (lambda: single("cuda"), lambda: single("torch")),
-        "leaf_values/global": (lambda: single("cuda", route="global"),
+        "leaf_values": (lambda: single("auto"), lambda: single("torch")),
+        "leaf_values/global": (lambda: single("auto", route="global"),
                                lambda: single("torch")),
         "tree_mean": (lambda: forest_eval.tree_mean(leaves),
                       lambda: forest_eval.tree_mean(leaves,
                                                     backend="torch")),
-        "predict_grouped": (lambda: fused_grouped("cuda"),
+        "predict_grouped": (lambda: fused_grouped("auto"),
                             lambda: fused_grouped("torch")),
-        "predict": (lambda: fused_single("cuda"),
+        "predict": (lambda: fused_single("auto"),
                     lambda: fused_single("torch")),
     }
     meta = {
@@ -4357,10 +4355,10 @@ def main(argv=None) -> int:
     # launches it replaces: the leaves-only traversal, then the tree mean
     fused_vs_two = {}
     for name, fused_run, leaves_run in [
-            ("predict_grouped", lambda: fused_grouped("cuda"),
-             lambda: grouped("cuda")),
-            ("predict", lambda: fused_single("cuda"),
-             lambda: single("cuda"))]:
+            ("predict_grouped", lambda: fused_grouped("auto"),
+             lambda: grouped("auto")),
+            ("predict", lambda: fused_single("auto"),
+             lambda: single("auto"))]:
         runs = {"fused": fused_run,
                 "two": lambda r=leaves_run: forest_eval.tree_mean(r())}
         t = [time_kernel_ms(torch, runs[k])
@@ -4379,10 +4377,10 @@ def main(argv=None) -> int:
         xn, gn = X4k[:n].contiguous(), g4k[:n].contiguous()
         for name, work_l, runs, grouped_ in [
                 ("leaf_values_grouped", grouped_work(xn, gn),
-                 {r: (lambda r=r: grouped("cuda", xn, gn, route=r))
+                 {r: (lambda r=r: grouped("auto", xn, gn, route=r))
                   for r in ROUTES}, True),
                 ("leaf_values", single_work(xn),
-                 {r: (lambda r=r: single("cuda", xn, route=r))
+                 {r: (lambda r=r: single("auto", xn, route=r))
                   for r in ROUTES}, False)]:
             b_ms, b_by = bound_ms(*work_l)
             # in turns (shared, global, global, shared); the mean of each

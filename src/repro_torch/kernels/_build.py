@@ -9,12 +9,13 @@ writes to a temporary name and renames it into place, so a concurrent or
 interrupted build never leaves a half-written library under the final
 name. :func:`build_all` runs one ``nvcc`` per source, all at once.
 
-Dispatch (``backend`` of every wrapper): ``"auto"`` launches the kernel for
-CUDA tensors and runs the plain version for CPU tensors; ``"cuda"``
-launches the kernel and raises for CPU tensors; ``"torch"`` runs the plain
-version on the tensors' own device (how ``chip_smoke.py`` holds a kernel
-against it). A failed launch raises; nothing falls back to the plain
-version.
+Dispatch: :func:`route` alone decides which implementation runs, from the
+tensors' device and ``backend`` (``"auto"`` or ``"torch"``, which every
+wrapper, model and the optimizer pass down): the kernel on the card, the
+CPU's own path off it, or the plain version wherever ``"torch"`` asks for
+it (how ``chip_smoke.py`` holds a kernel against it). A kernel's entry
+point raises for tensors off the card (:func:`check_cuda`), and a failed
+launch raises; nothing falls back to the plain version.
 
 Gradients (:func:`needs_grad`, :func:`check_no_grad`,
 :func:`recompute_grads`): a kernel fills its output through a raw
@@ -33,6 +34,7 @@ import subprocess
 from typing import Dict, Iterable, List
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -119,19 +121,41 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
-def use_kernel(x: torch.Tensor, backend: str, module: str) -> bool:
-    """Whether a wrapper of ``module`` given ``x`` launches its kernel (see
-    the module docstring); raises for ``backend="cuda"`` on a CPU tensor."""
-    if backend == "auto":
-        return x.is_cuda
-    if backend == "cuda":
-        if not x.is_cuda:
-            raise ValueError(f"backend='cuda' needs CUDA tensors; got a "
-                             f"tensor on {x.device}")
-        return True
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's implementation: a CUDA tensor, or a
+    fake one (``FakeTensorMode``, the dry-run's trace) on either device, so
+    that a trace holds what the card runs."""
+    return x.is_cuda or is_fake(x)
+
+
+def route(x: torch.Tensor, backend: str) -> str:
+    """Which implementation runs on ``x``; the one place that decides.
+
+    - ``"kernel"`` (``backend="auto"``, :func:`on_card`): the registered op,
+      whose CUDA implementation launches the kernel and whose fake one
+      traces it as one node; the forest wrappers launch directly.
+    - ``"reference"`` (``"auto"`` off the card): the models run the
+      reference's own functions, autograd straight through them; a wrapper
+      or the optimizer called directly calls its registered op, whose CPU
+      implementation is the plain version; the forest wrappers run their
+      plain versions.
+    - ``"plain"`` (``"torch"``): the plain version on ``x``'s own device,
+      no op.
+
+    Any other ``backend`` raises ``ValueError``."""
     if backend == "torch":
-        return False
-    raise ValueError(f"unknown {module} backend {backend!r}")
+        return "plain"
+    if backend != "auto":
+        raise ValueError(f"unknown backend {backend!r}: 'auto' or 'torch'")
+    return "kernel" if on_card(x) else "reference"
+
+
+def check_cuda(module: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` is a CUDA tensor: a kernel's entry point reads
+    and writes device memory through raw pointers."""
+    if not x.is_cuda:
+        raise ValueError(f"the {module} kernel needs CUDA tensors; got a "
+                         f"tensor on {x.device}")
 
 
 def check_16_byte_rows(*named: tuple) -> None:

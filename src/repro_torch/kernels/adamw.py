@@ -40,8 +40,8 @@ its float32 temporaries stay small), and their fake implementations let
 ``FakeTensorMode`` trace each as one node, which
 ``repro_torch.analysis.opcount`` counts as :func:`sumsq_work` and
 :func:`update_work`. ``train/optimizer.py`` calls the ops for
-``backend="auto"`` (:func:`use_ops`) and the plain versions directly for
-``backend="torch"``. While a profiler records, a launch of the update
+``backend="auto"`` and the plain versions directly for ``backend="torch"``
+(``_build.route``). While a profiler records, a launch of the update
 adds its elements to the counter ``optimizer/kernel_elements``.
 """
 from __future__ import annotations
@@ -91,13 +91,6 @@ def reset_launches() -> None:
 def library() -> ctypes.CDLL:
     """The kernel's shared library, built from source at first use."""
     return _build.load("adamw", _SIGNATURES)
-
-
-def use_ops(x: torch.Tensor, backend: str) -> bool:
-    """Whether the optimizer given ``x`` calls the registered ops: always
-    for ``"auto"`` (the kernel on the card, the plain version on the CPU,
-    one node each in a fake trace), else as ``_build.use_kernel``."""
-    return backend == "auto" or _build.use_kernel(x, backend, "adamw")
 
 
 # ---------------------------------------------------------------------------
@@ -259,10 +252,11 @@ def dense(t: torch.Tensor) -> bool:
 
 def _check_grads(grads: Sequence[torch.Tensor]) -> int:
     """Raise unless every gradient fits the kernel; their device index."""
+    _build.check_cuda("adamw", grads[0])
     dev = grads[0].get_device()
     for i, g in enumerate(grads):
-        if not g.is_cuda or g.get_device() != dev:
-            raise ValueError(f"the adamw kernel takes CUDA tensors on one "
+        if g.get_device() != dev:
+            raise ValueError(f"the adamw kernel takes tensors on one "
                              f"device; gradient {i} is on {g.device}, the "
                              f"first on {grads[0].device}")
         if g.dtype is not torch.float32:

@@ -16,13 +16,13 @@ elements. float32 runs on the CUDA cores. The plain version is
 ``flash_attention_ref`` (materialized f32 scores, ``tril`` mask, softmax,
 P.V).
 
-Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it,
-through one registered op, ``torch.ops.repro_torch.flash_attention``: its
-CUDA implementation launches the kernel, its CPU implementation is the
-plain version, and its fake implementation gives the output's shape, so
-that ``FakeTensorMode`` traces a call as one node on either device and
-``repro_torch.analysis.opcount`` counts it as :func:`work`.
-``backend="torch"`` calls the plain version without the op.
+Dispatch (``backend``) by ``_build.route``, through one registered op,
+``torch.ops.repro_torch.flash_attention``: its CUDA implementation launches
+the kernel, its CPU implementation is the plain version, and its fake
+implementation gives the output's shape, so that ``FakeTensorMode`` traces
+a call as one node on either device and ``repro_torch.analysis.opcount``
+counts it as :func:`work`. ``backend="torch"`` calls the plain version
+without the op.
 
 Gradients: the kernel writes its output through a raw pointer, so a
 tensor it fills has no ``grad_fn``. Whenever grad is enabled and an input
@@ -150,9 +150,8 @@ def _flash_attention_fake(q, k, v, scale=None):
 
 
 def _forward(q, k, v, backend: str, scale=None) -> torch.Tensor:
-    if backend == "torch":
+    if _build.route(q, backend) == "plain":
         return flash_attention_ref(q, k, v, scale)
-    _build.use_kernel(q, backend, "flash_attention")  # raises on a misfit
     return flash_attention_op(q, k, v, scale)
 
 
@@ -183,7 +182,7 @@ def kernel_forward(q, k, v, *, scale: Optional[float] = None
     enabled and an input requires it (call :func:`flash_attention`, which
     routes such inputs through :class:`FlashAttention`)."""
     _build.check_no_grad("flash_attention", q, k, v)
-    _build.use_kernel(q, "cuda", "flash_attention")
+    _build.check_cuda("flash_attention", q)
     _check(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)

@@ -57,10 +57,10 @@ reference's production path (``leaf_values_grouped_numpy`` /
 ``leaf_values_numpy``), and :func:`predict` / :func:`predict_grouped`
 bitwise equal to ``repro``'s ``predict`` / ``predict_grouped``.
 
-Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it:
-``"auto"`` launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors. A failed launch raises; nothing falls back to the plain
-version.
+Dispatch (``backend``) by ``_build.route``: ``"auto"`` launches the kernel
+for CUDA tensors and runs the plain version for CPU tensors, ``"torch"``
+runs the plain version. A failed launch raises; nothing falls back to the
+plain version.
 """
 from __future__ import annotations
 
@@ -297,6 +297,7 @@ def _launch(fn: str, key: str, X, T: int, *args,
     or, with ``mean`` (the plan of a fused launch), into fresh ``(rows,)``
     means over a ``(T, rows)`` scratch of leaves, with the stream's tile
     counters."""
+    _build.check_cuda("forest_eval", X)
     m = X.shape[0]
     leaves = torch.empty((T, m), dtype=torch.float64, device=X.device)
     out = leaves if mean is None else torch.empty(
@@ -382,7 +383,7 @@ def leaf_values_grouped(X, gid, feat, thr, left, right, value, depth, *,
     int64 ``(G,)``. The range of ``gid`` is checked on the card, not on
     the host (that would sync every wave): a row whose ``gid`` lies outside
     ``[0, G)`` reads no forest and gets NaN in every tree."""
-    if not _build.use_kernel(X, backend, "forest_eval"):
+    if _build.route(X, backend) != "kernel":
         _plain("leaf_values_grouped")
         return leaf_values_grouped_plain(X, gid, feat, thr, left, right,
                                          value, depth)
@@ -462,7 +463,7 @@ def leaf_values(X, feat, thr, left, right, value, *, depth: int,
                 backend: str = "auto") -> torch.Tensor:
     """Single-forest traversal, ``(T, rows)`` float64 leaf values; forest
     arrays ``(T, N)``, ``depth`` the forest's grown depth."""
-    if not _build.use_kernel(X, backend, "forest_eval"):
+    if _build.route(X, backend) != "kernel":
         _plain("leaf_values")
         return leaf_values_plain(X, feat, thr, left, right, value, depth)
     args = (X, feat, thr, left, right, value)
@@ -535,9 +536,10 @@ def tree_mean_plain(vals: torch.Tensor) -> torch.Tensor:
 
 def tree_mean(vals: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """``(rows,)`` float64 mean of ``(T, rows)`` float64 leaf values."""
-    if not _build.use_kernel(vals, backend, "forest_eval"):
+    if _build.route(vals, backend) != "kernel":
         _plain("tree_mean")
         return tree_mean_plain(vals)
+    _build.check_cuda("forest_eval", vals)
     if vals.dim() != 2:
         raise ValueError(f"vals must be (T, rows); got {tuple(vals.shape)}")
     _check("vals", vals, torch.float64, tuple(vals.shape), vals.device)
@@ -572,7 +574,7 @@ def predict(X, feat, thr, left, right, value, *, depth: int,
     """Forest prediction: float64 tree mean of the per-tree leaf values;
     arguments as :func:`leaf_values`. On the card one launch where the
     shared route is taken, else the global traversal and the tree mean."""
-    if not _build.use_kernel(X, backend, "forest_eval"):
+    if _build.route(X, backend) != "kernel":
         _plain("predict")
         return predict_plain(X, feat, thr, left, right, value, depth)
     args = (X, feat, thr, left, right, value)
@@ -595,7 +597,7 @@ def predict_grouped(X, gid, feat, thr, left, right, value, depth, *,
     forest; arguments as :func:`leaf_values_grouped`. On the card ONE
     launch where the shared route is taken (every serving wave of the
     paper grid), else the global traversal and the tree mean."""
-    if not _build.use_kernel(X, backend, "forest_eval"):
+    if _build.route(X, backend) != "kernel":
         _plain("predict_grouped")
         return predict_grouped_plain(X, gid, feat, thr, left, right, value,
                                      depth)

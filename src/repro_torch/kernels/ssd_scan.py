@@ -25,13 +25,13 @@ The plain version is :func:`ssd_chunked`, the port of
 ``repro_torch.kernels.ref.ssd_scan_ref`` (the sequential recurrence) is
 the second oracle of the tests.
 
-Dispatch (``backend``) as :mod:`repro_torch.kernels._build` describes it,
-through one registered op, ``torch.ops.repro_torch.ssd_scan``: its CUDA
-implementation is the kernel (the three bf16 launches or the float32 one),
-its CPU implementation the plain version, and its fake implementation
-gives Y's shape, so that ``FakeTensorMode`` traces a call as one node on
-either device and ``repro_torch.analysis.opcount`` counts it as
-:func:`work`. ``backend="torch"`` calls the plain version without the op.
+Dispatch (``backend``) by ``_build.route``, through one registered op,
+``torch.ops.repro_torch.ssd_scan``: its CUDA implementation is the kernel
+(the three bf16 launches or the float32 one), its CPU implementation the
+plain version, and its fake implementation gives Y's shape, so that
+``FakeTensorMode`` traces a call as one node on either device and
+``repro_torch.analysis.opcount`` counts it as :func:`work`.
+``backend="torch"`` calls the plain version without the op.
 
 Gradients: :func:`ssd_chunked` has two roles. It is the kernel's plain
 version, and it is the reference's own train-time function (the
@@ -64,7 +64,6 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
-from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import spans
 from repro_torch.kernels import _build
@@ -443,29 +442,17 @@ def _ssd_scan_backward_fake(X, Adt, Bc, Cc, dY, chunk):
                  for t in (X, Adt, Bc, Cc))
 
 
-def takes_backward_kernel(X, Adt, Bc, Cc, backend: str) -> bool:
-    """Whether :class:`SSDScan`'s backward runs the backward op on these
-    saved inputs: bfloat16 X, Bc, Cc and float32 Adt on the card (CUDA
-    tensors, or fake ones, so that a dry-run's trace holds what the card
-    runs), with any backend but ``"torch"``; everything else recomputes
-    :func:`ssd_chunked`."""
-    return backend != "torch" and (X.is_cuda or is_fake(X)) \
-        and X.dtype == Bc.dtype == Cc.dtype == torch.bfloat16 \
-        and Adt.dtype == torch.float32
-
-
 def _forward(X, Adt, Bc, Cc, chunk: int, backend: str) -> torch.Tensor:
-    if backend == "torch":
+    if _build.route(X, backend) == "plain":
         return ssd_chunked(X, Adt, Bc, Cc, chunk)[0]
-    _build.use_kernel(X, backend, "ssd_scan")  # raises on a misfit
     return ssd_scan_op(X, Adt, Bc, Cc, chunk)
 
 
 class SSDScan(torch.autograd.Function):
-    """The kernel's forward; the backward is the backward op for bfloat16
-    inputs on the card (:func:`takes_backward_kernel`), else it recomputes
-    :func:`ssd_chunked` from the saved X, Adt, Bc, Cc and returns its
-    autograd gradients."""
+    """The kernel's forward; the backward is the backward op where the
+    kernel runs (``_build.route``) on bfloat16 X, Bc, Cc and float32 Adt,
+    else it recomputes :func:`ssd_chunked` from the saved X, Adt, Bc, Cc
+    and returns its autograd gradients."""
 
     @staticmethod
     def forward(ctx, X, Adt, Bc, Cc, chunk, backend):
@@ -477,7 +464,10 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, grad_y):
         spans.count("ssd/backward_calls", 1)
         saved, needs = ctx.saved_tensors, ctx.needs_input_grad[:4]
-        if takes_backward_kernel(*saved, ctx.backend):
+        X, Adt, Bc, Cc = saved
+        if _build.route(X, ctx.backend) == "kernel" \
+                and X.dtype == Bc.dtype == Cc.dtype == torch.bfloat16 \
+                and Adt.dtype == torch.float32:
             grads = ssd_scan_backward_op(*saved, grad_y.contiguous(),
                                          ctx.chunk)
             grads = [g if n else None for g, n in zip(grads, needs)]
@@ -495,7 +485,7 @@ def kernel_forward(X, Adt, Bc, Cc, *, chunk: int) -> torch.Tensor:
     requires it (call :func:`ssd_scan`, which routes such inputs through
     :class:`SSDScan`)."""
     _build.check_no_grad("ssd_scan", X, Adt, Bc, Cc)
-    _build.use_kernel(X, "cuda", "ssd_scan")
+    _build.check_cuda("ssd_scan", X)
     _check(X, Adt, Bc, Cc, chunk)
     B, S, H, P = X.shape
     Y = torch.empty((B, S, H, P), dtype=X.dtype, device=X.device)
@@ -543,7 +533,7 @@ def kernel_backward(X, Adt, Bc, Cc, dY, *, chunk: int) -> tuple:
     the state gradients (B, H, S / Q, P, N), the cumsums (B, H, S) and the
     d(cs) parts of each 64-row key tile (B, H, S / Q, ceil(Q / 64), Q);
     217 MB at mamba2-130m's train step, 580 MB at granite's."""
-    _build.use_kernel(X, "cuda", "ssd_scan")
+    _build.check_cuda("ssd_scan", X)
     _check(X, Adt, Bc, Cc, chunk)
     if X.dtype != torch.bfloat16 or dY.dtype != X.dtype \
             or dY.shape != X.shape or dY.device != X.device:

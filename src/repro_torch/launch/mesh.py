@@ -156,8 +156,8 @@ def data_axis_size(mesh) -> int:
 
 
 def _rank_main(rank, fn, world_size, store_path, device, args):
-    if torch.device(device).type == "cpu":  # the ranks share the cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    if torch.device(device).type == "cpu":  # the ranks share the threads
+        torch.set_num_threads(max(1, torch.get_num_threads() // world_size))
     init_process_group(rank, world_size, store_path, device=device)
     try:
         fn(rank, world_size, *args)

@@ -41,13 +41,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (WHOLE, all_reduce, constrain,
                                                is_dtensor, mesh_dim_of,
                                                shard_local, unshard)
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
                                      _sdpa, reference_attention)
 from repro_torch.kernels.ref import repeat_kv as _repeat_kv
@@ -238,26 +237,11 @@ def _project_qkv(p, x, positions, theta, *, decode=False):
 # ---------------------------------------------------------------------------
 
 
-def card_route(x: torch.Tensor) -> bool:
-    """Whether ``x`` takes the card's ops: a CUDA tensor, or a fake one
-    (``FakeTensorMode``, the dry-run's trace) on either device, so that a
-    trace holds what the card runs."""
-    return x.is_cuda or is_fake(x)
-
-
-def reference_route(x: torch.Tensor, backend: str) -> bool:
-    """Whether a block runs the reference's own functions
-    (:func:`reference_attention`, ``ssm.ssd_chunked``, autograd straight
-    through them) rather than a kernel wrapper: for ``backend="auto"`` off
-    the card (:func:`card_route`)."""
-    return backend == "auto" and not card_route(x)
-
-
 def causal_attention(q, k, v, *, backend: str = "auto", scale=None):
     """Causal GQA attention. q: (B,S,H,hd); k, v: (B,S,KV,hd); the scores
     scaled by ``scale`` (1/sqrt(hd) when None).
 
-    On the card, and wherever ``backend`` names one, it runs the
+    On the card, and for ``backend="torch"``, it runs the
     flash-attention kernel's wrapper (``ops.flash_attention``); when grad
     is enabled and an input requires it, the wrapper goes through its
     ``autograd.Function`` (the kernel forward, the gradient of
@@ -267,7 +251,8 @@ def causal_attention(q, k, v, *, backend: str = "auto", scale=None):
     accumulator in float32; its plain version (``backend="torch"``, like
     the Pallas kernel) keeps the probabilities in float32 too.
 
-    On the CPU with ``backend="auto"``, the model's plain path, it follows
+    On the CPU with ``backend="auto"`` (``_build.route`` answers
+    ``"reference"``), the model's plain path, it follows
     the reference's ``causal_attention`` op for op
     (:func:`reference_attention`, autograd straight through it), rounding
     where it rounds: the scores come out of the activations' dtype
@@ -276,7 +261,7 @@ def causal_attention(q, k, v, *, backend: str = "auto", scale=None):
     if is_dtensor(q):
         return _per_rank_heads(lambda *a: causal_attention(
             *a, backend=backend, scale=scale), q, k, v)
-    if reference_route(q, backend):
+    if _build.route(q, backend) == "reference":
         return reference_attention(q, k, v, scale)
     return ops.flash_attention(q, k, v, backend=backend, scale=scale)
 
@@ -555,14 +540,14 @@ class _ReferenceSilu(torch.autograd.Function):
 
 def silu(x):
     """SiLU. On the card ``F.silu`` (one rounding to x's dtype), and for
-    fake tensors (:func:`card_route`). On the CPU, the model's plain path,
+    fake tensors (``_build.on_card``). On the CPU, the model's plain path,
     the reference's rounding order (:class:`_ReferenceSilu`):
     ``jax.nn.silu`` is ``x * sigmoid(x)``, and XLA computes a bfloat16
     sigmoid as ``1 / (1 + exp(-x))`` rounding after every op, so each op
     here runs in x's dtype (in bfloat16 the two orders round many elements
     differently; in float32 they agree to rounding), and so does the
     gradient."""
-    if card_route(x):
+    if _build.on_card(x):
         return F.silu(x)
     return _ReferenceSilu.apply(x)
 
@@ -570,12 +555,12 @@ def silu(x):
 def gelu_tanh(x):
     """GELU, tanh approximation (``jax.nn.gelu``'s default). On the card
     ``F.gelu(x, approximate="tanh")`` (one rounding to x's dtype), and for
-    fake tensors (:func:`card_route`). On the
+    fake tensors (``_build.on_card``). On the
     CPU, the model's plain path, the reference's own formula and rounding
     order: ``jax.nn.gelu`` computes ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x
     + 0.044715 * x**3))))`` in x's dtype, its two constants rounded to it
     (0.796875 and 0.0446777 in bfloat16) and every op rounded."""
-    if card_route(x):
+    if _build.on_card(x):
         return F.gelu(x, approximate="tanh")
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
     c3 = torch.tensor(0.044715, dtype=x.dtype)

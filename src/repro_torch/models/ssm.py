@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (WHOLE, constrain, is_dtensor,
                                                merge_heads, shard_local,
                                                split_heads)
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked  # noqa: F401
 from repro_torch.models import layers as L
@@ -186,7 +186,7 @@ def ssd_y(X, A, Bc, Cc, chunk: int, backend: str):
         return shard_local(
             lambda x, a, b, c, heads: ssd_y(x, a, b, c, chunk, backend),
             (X, A, Bc, Cc), (2, 2, None, None))
-    if L.reference_route(X, backend):
+    if _build.route(X, backend) == "reference":
         return ssd_chunked(X, A, Bc, Cc, chunk)[0]
     return ops.ssd_scan(X, A, Bc, Cc, chunk=chunk, backend=backend)
 

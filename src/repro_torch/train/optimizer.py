@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from repro_torch import spans
 from repro_torch.distributed.sharding import is_dtensor, local, replicas
+from repro_torch.kernels import _build
 from repro_torch.kernels import adamw as AW
 from repro_torch.models.model import stacked
 
@@ -118,7 +119,8 @@ def global_norm(tree: Dict[str, torch.Tensor], *,
     the ranks' sums."""
     gs = [local(g) for g in tree.values()]
     reps = [replicas(g) for g in tree.values()]
-    sumsq = AW.sumsq_op if AW.use_ops(gs[0], backend) else AW.sumsq_plain
+    plain = _build.route(gs[0], backend) == "plain"
+    sumsq = AW.sumsq_plain if plain else AW.sumsq_op
     sq = sumsq(gs, reps)
     if any(is_dtensor(g) for g in tree.values()):
         dist.all_reduce(sq)
@@ -131,10 +133,9 @@ def apply_updates(params: Dict[str, torch.Tensor],
                   hp: OptHParams, *, backend: str = "auto"):
     """One AdamW step, in place. Returns (params, state, metrics) with
     metrics ``{"grad_norm", "lr"}`` as float32 0-d tensors (the norm
-    before clipping). ``backend``: ``"auto"`` calls the AdamW ops (the
-    kernel on the card, the eager version on the CPU), ``"cuda"`` the ops
-    on CUDA tensors only (raising for others), ``"torch"`` the eager
-    version."""
+    before clipping). ``backend`` (``_build.route``): ``"auto"`` calls the
+    AdamW ops (the kernel on the card, the eager version on the CPU),
+    ``"torch"`` the eager version."""
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
     gnorm = global_norm(grads, backend=backend)
@@ -154,7 +155,8 @@ def apply_updates(params: Dict[str, torch.Tensor],
     ms = [local(state["m"][k]) for k in names]
     vs = [local(state["v"][k]) for k in names]
     flags = [decays(k, params[k]) for k in names]
-    update = AW.update_op if AW.use_ops(ps[0], backend) else AW.update_plain
+    plain = _build.route(ps[0], backend) == "plain"
+    update = AW.update_plain if plain else AW.update_op
     update(ps, gs, ms, vs, flags, scale, lr, bc1, bc2, hp.b1, hp.b2, hp.eps,
            hp.weight_decay)
     spans.count("optimizer/elements", sum(p.numel() for p in ps))

@@ -217,28 +217,33 @@ def test_no_counts_without_a_profiler():
     assert spans.drain() == {}
 
 
-@pytest.mark.parametrize("backend,want", [("auto", True), ("torch", False),
-                                          ("cuda", ValueError),
+@pytest.mark.parametrize("backend,want", [("auto", 1), ("torch", 0),
+                                          ("xla", ValueError),
                                           ("triton", ValueError)])
-def test_use_ops_on_cpu_tensors(backend, want):
+def test_optimizer_ops_on_cpu_tensors(backend, want):
     """``"auto"`` calls the ops on every device (their CPU version is the
-    plain one), ``"torch"`` never, ``"cuda"`` refuses a CPU tensor."""
-    x = torch.zeros(3)
-    if want is ValueError:
-        with pytest.raises(ValueError):
-            AW.use_ops(x, backend)
-    else:
-        assert AW.use_ops(x, backend) is want
-
-
-def test_backend_cuda_on_cpu_tensors_raises():
+    plain one), ``"torch"`` never, any other backend raises."""
     params, grads, state, hp = _problem(SIZES["edges"])
+    if want is ValueError:
+        with pytest.raises(ValueError, match="unknown backend"):
+            OPT.apply_updates(params, grads, state, hp, backend=backend)
+        return
+    with OpCounter() as c:
+        OPT.apply_updates(params, grads, state, hp, backend=backend)
+    assert c.kernel_nodes("adamw_sumsq") == c.kernel_nodes(
+        "adamw_update") == want
+
+
+def test_kernel_on_cpu_tensors_raises():
+    params, grads, state, hp = _problem(SIZES["edges"])
+    ps, gs = list(params.values()), list(grads.values())
+    ms, vs = list(state["m"].values()), list(state["v"].values())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        OPT.apply_updates(params, grads, state, hp, backend="cuda")
+        AW.kernel_sumsq(gs, [1] * len(gs))
+    one = torch.ones(())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        OPT.global_norm(grads, backend="cuda")
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        AW.kernel_sumsq(list(grads.values()), [1] * len(grads))
+        AW.kernel_update(ps, gs, ms, vs, [True] * len(ps), one, one, one,
+                         one, 0.9, 0.95, 1e-8, 0.1)
 
 
 _X = torch.zeros(64, 64)

@@ -19,6 +19,7 @@ runs files on shared workers, and a group left behind would leak into the
 next file. The counts are held against analytic values, not the
 reference's dry-run, which fails under jax 0.9.0.
 """
+import contextlib
 import json
 import math
 import os
@@ -29,6 +30,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.analysis import roofline as RRL
 from repro.configs import base as RCB
@@ -39,7 +41,9 @@ from repro_torch.configs import base as CB
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import ssm as SSM
 from repro_torch.train import optimizer as OPT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -227,13 +231,79 @@ def test_kernel_ops_trace_as_one_node_under_fake_mode():
     assert c.summary.flops == fa.work(q, k)[1]
 
 
-def test_backend_cuda_on_cpu_tensors_raises_and_torch_skips_the_op():
+def test_kernel_entry_on_cpu_tensors_raises_and_torch_skips_the_op():
     q, k, v = _qkv(torch.float32)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        fa.flash_attention(q, k, v, backend="cuda")
+        fa.kernel_forward(q, k, v)
     with OpCounter() as c:
         fa.flash_attention(q, k, v, backend="torch")
     assert c.kernel_nodes("flash_attention") == 0
+
+
+def _route_case(kernel: str, backend: str) -> dict:
+    """Run ``kernel``'s wrapper (with a backward where it has one) and the
+    model's call of it under ``backend`` on tensors made here: its kernel
+    op nodes, the model's, and the SSD backward's recomputes."""
+    grad = dict(requires_grad=True)
+    if kernel == "adamw":
+        params = {"blocks.0.w": torch.ones(4, 8), "top": torch.ones(8)}
+        grads = {k: torch.full_like(p, 0.5) for k, p in params.items()}
+        hp = OPT.OptHParams(warmup_steps=2)
+        with OpCounter() as c:
+            OPT.apply_updates(params, grads, OPT.init_state(params, hp), hp,
+                              backend=backend)
+        return {"nodes": c.kernel_nodes("adamw_sumsq")
+                + c.kernel_nodes("adamw_update")}
+    if kernel == "flash_attention":
+        q = torch.ones(1, 64, 2, 16, dtype=torch.bfloat16, **grad)
+        kv = torch.ones(1, 64, 1, 16, dtype=torch.bfloat16, **grad)
+        with OpCounter() as c:
+            fa.flash_attention(q, kv, kv, backend=backend).sum().backward()
+        with OpCounter() as m:
+            L.causal_attention(q, kv, kv, backend=backend)
+        return {"nodes": c.kernel_nodes(kernel),
+                "model_nodes": m.kernel_nodes(kernel)}
+    X = torch.ones(1, 64, 2, 16, dtype=torch.bfloat16, **grad)
+    Adt = torch.full((1, 64, 2), -0.5, **grad)
+    Bc = torch.ones(1, 64, 16, dtype=torch.bfloat16, **grad)
+    ssd.reset_launches()
+    with OpCounter() as c:
+        ssd.ssd_scan(X, Adt, Bc, Bc, chunk=32,
+                     backend=backend).sum().backward()
+    with OpCounter() as m:
+        SSM.ssd_y(X, Adt, Bc, Bc, 32, backend)
+    return {"nodes": c.kernel_nodes(kernel),
+            "model_nodes": m.kernel_nodes(kernel),
+            "backward_nodes": c.kernel_nodes("ssd_scan_backward"),
+            "recomputes": ssd.backward_recomputes["ssd_scan"]}
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch", "xla"])
+@pytest.mark.parametrize("device", ["cpu", "fake"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan", "adamw"])
+def test_route_takes_each_implementation_on_each_device(kernel, device,
+                                                        backend):
+    """``_build.route`` on the CPU, fake tensors standing for the card. A
+    wrapper or the optimizer called directly runs its registered op (one
+    node; the plain version on the CPU, the card's node in a trace) for
+    ``"auto"`` and the plain version, no op, for ``"torch"``. The models
+    on CPU tensors under ``"auto"`` run the reference's own functions (no
+    op), on fake ones the op. The SSD backward takes its op for bf16 fake
+    tensors under ``"auto"`` and recomputes ``ssd_chunked`` everywhere
+    else. Any other backend raises."""
+    with FakeTensorMode() if device == "fake" else contextlib.nullcontext():
+        if backend == "xla":
+            with pytest.raises(ValueError, match="unknown backend 'xla'"):
+                _route_case(kernel, backend)
+            return
+        got = _route_case(kernel, backend)
+    op, card = backend == "auto", backend == "auto" and device == "fake"
+    want = {"nodes": 2 * op if kernel == "adamw" else int(op)}
+    if kernel != "adamw":
+        want["model_nodes"] = int(card)
+    if kernel == "ssd_scan":
+        want.update(backward_nodes=int(card), recomputes=int(not card))
+    assert got == want
 
 
 @pytest.mark.cuda

@@ -187,20 +187,24 @@ def test_hybrid_prefill_needs_a_multiple_of_the_window():
                                                      dtype=torch.int32)})
 
 
-def test_local_attention_is_chosen_by_the_window_alone():
+def test_local_attention_is_chosen_by_the_window_alone(monkeypatch):
     """A layer with a window runs the plain local attention whatever the
-    backend asks of the flash kernel (``backend="cuda"`` on CPU tensors
-    would raise there), and matches its two-block form against one
-    materialised sliding-window mask."""
+    backend asks of the flash kernel (its wrapper, replaced here by a probe
+    that raises, is called only without a window), and matches its
+    two-block form against one materialised sliding-window mask."""
     _, _, cfg, model = _pair("recurrentgemma_2b")
     p = model.groups[0].attn.attn
     x = torch.randn(2, 48, cfg.d_model, generator=torch.Generator()
                     .manual_seed(0))
     pos = torch.arange(48, dtype=torch.int32).expand(2, 48)
+
+    def probe(*a, **kw):
+        raise LookupError("the flash kernel's wrapper was called")
+    monkeypatch.setattr(L.ops, "flash_attention", probe)
     got = L.attention_apply(p, x, cfg, positions=pos, window=16,
-                            backend="cuda")
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        L.attention_apply(p, x, cfg, positions=pos, backend="cuda")
+                            backend="torch")
+    with pytest.raises(LookupError, match="wrapper was called"):
+        L.attention_apply(p, x, cfg, positions=pos, backend="torch")
     q, k, v = L._project_qkv(p, x, pos, cfg.rope_theta)
     i, j = torch.arange(48)[:, None], torch.arange(48)[None, :]
     mask = (j <= i) & (i - j < 16)

@@ -80,15 +80,15 @@ def test_plain_is_causal():
                                atol=1e-6, rtol=1e-6)
 
 
-def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
+def test_cpu_calls_launch_nothing_and_the_kernel_raises():
     _, (q, k, v) = _qkv(1, 64, 2, 1, 16, "float32")
     fa.reset_launches()
     ops.flash_attention(q, k, v)
     ops.flash_attention(q, k, v, backend="torch")
     assert fa.launches == {"flash_attention": 0}
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        ops.flash_attention(q, k, v, backend="cuda")
-    with pytest.raises(ValueError, match="unknown flash_attention backend"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa.kernel_forward(q, k, v)
+    with pytest.raises(ValueError, match="unknown backend 'xla'"):
         ops.flash_attention(q, k, v, backend="xla")
 
 

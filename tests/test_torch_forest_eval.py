@@ -171,7 +171,7 @@ def test_tree_mean_bitwise_and_row_stable():
     np.testing.assert_array_equal(sub.numpy(), got[5:9])
 
 
-def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
+def test_cpu_calls_launch_nothing_and_the_kernels_raise(monkeypatch):
     _, s = _stack(seed=8)
     t = _t(s)
     X = torch.zeros((3, 4), dtype=torch.float64)
@@ -187,18 +187,19 @@ def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
     forest_eval.reset_launches()
     assert not any(forest_eval.plain_calls.values())
     assert not any(forest_eval.launches.values())
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        forest_eval.leaf_values_grouped(X, gid, *(t[k] for k in FIELDS),
-                                        t["depth"], backend="cuda")
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        forest_eval.leaf_values(X, *(t[k][0] for k in FIELDS), depth=2,
-                                backend="cuda")
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        forest_eval.tree_mean(torch.zeros((4, 3), dtype=torch.float64),
-                              backend="cuda")
-    with pytest.raises(ValueError, match="unknown forest_eval backend"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        forest_eval._leaf_values_grouped_global(
+            X, gid, *(t[k] for k in FIELDS), t["depth"])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        forest_eval._leaf_values_global(X, *(t[k][0] for k in FIELDS),
+                                        depth=2)
+    with pytest.raises(ValueError, match="unknown backend 'pallas'"):
         forest_eval.tree_mean(torch.zeros((4, 3), dtype=torch.float64),
                               backend="pallas")
+    # the tree mean's launch sits in its wrapper: sent there, it raises
+    monkeypatch.setattr(_build, "route", lambda x, backend: "kernel")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        forest_eval.tree_mean(torch.zeros((4, 3), dtype=torch.float64))
 
 
 def test_smem_bytes_counts_tree_rows_and_list():
@@ -572,7 +573,7 @@ def test_predict_fuses_exactly_where_the_shared_route_is_taken(
         assert grouped_ == grouped and mean
         return _h100_resident(grouped)(smem)
 
-    monkeypatch.setattr(_build, "use_kernel", lambda x, backend, mod: True)
+    monkeypatch.setattr(_build, "route", lambda x, backend: "kernel")
     monkeypatch.setattr(forest_eval, "resident_blocks", resident)
     monkeypatch.setattr(forest_eval, "tree_mean", record("mean"))
     for fn in ("_predict_grouped_shared", "_predict_shared"):

@@ -151,8 +151,18 @@ def test_backward_work_at_the_train_cells():
         assert 2.5 < got / ssd.work(X, Bc, 256)[1] < 3
 
 
+def _backward_nodes(X, Adt, Bc, backend) -> tuple:
+    """(backward op nodes, recomputes) of one backward of SSDScan."""
+    ins = [t.requires_grad_() for t in (X, Adt, Bc, Bc.clone())]
+    ssd.reset_launches()
+    with OpCounter() as c:
+        ssd.ssd_scan(*ins, chunk=32, backend=backend).sum().backward()
+    return (c.kernel_nodes("ssd_scan_backward"),
+            ssd.backward_recomputes["ssd_scan"])
+
+
 @pytest.mark.parametrize("dtype,backend,kernel", [
-    (torch.bfloat16, "auto", True), (torch.bfloat16, "cuda", True),
+    (torch.bfloat16, "auto", True), (torch.float32, "torch", False),
     (torch.bfloat16, "torch", False), (torch.float32, "auto", False)])
 def test_route_depends_on_device_and_dtype(dtype, backend, kernel):
     """Fake tensors stand for the card: bf16 takes the op unless the backend
@@ -161,9 +171,10 @@ def test_route_depends_on_device_and_dtype(dtype, backend, kernel):
         X = torch.empty(1, 64, 2, 16, dtype=dtype)
         Adt = torch.empty(1, 64, 2)
         Bc = torch.empty(1, 64, 16, dtype=dtype)
-        assert ssd.takes_backward_kernel(X, Adt, Bc, Bc, backend) is kernel
+        assert _backward_nodes(X, Adt, Bc, backend) == (
+            (1, 0) if kernel else (0, 1))
     X, Adt, Bc, _, _ = _inputs(1, 64, 2, 16, 16, dtype)
-    assert not ssd.takes_backward_kernel(X, Adt, Bc, Bc, backend)
+    assert _backward_nodes(X, Adt, Bc, backend) == (0, 1)
 
 
 @pytest.mark.parametrize("needs", [(True, False, False, False),
@@ -211,5 +222,5 @@ def test_backward_smem_fits_hopper():
 
 def test_kernel_backward_raises_without_a_card():
     X, Adt, Bc, Cc, dY = _inputs(1, 64, 2, 16, 16, torch.bfloat16)
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         ssd.kernel_backward(X, Adt, Bc, Cc, dY, chunk=32)

@@ -104,14 +104,16 @@ def test_sequence_not_a_multiple_of_the_chunk_raises():
         ops.ssd_scan(*tt, chunk=64)
 
 
-def test_cpu_calls_launch_nothing_and_cuda_backend_raises():
+def test_cpu_calls_launch_nothing_and_the_kernel_raises():
     _, tt = _inputs(1, 64, 2, 16, 16, "float32")
     ssd.reset_launches()
     ops.ssd_scan(*tt, chunk=32)
     ops.ssd_scan(*tt, chunk=32, backend="torch")
     assert ssd.launches == {"ssd_scan": 0, "ssd_scan_backward": 0}
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        ops.ssd_scan(*tt, chunk=32, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssd.kernel_forward(*tt, chunk=32)
+    with pytest.raises(ValueError, match="unknown backend 'triton'"):
+        ops.ssd_scan(*tt, chunk=32, backend="triton")
 
 
 @pytest.mark.parametrize("P,N,dtype,chunk,match", [

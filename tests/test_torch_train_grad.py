@@ -126,7 +126,7 @@ def test_kernel_launch_outside_the_function_raises_on_grad_inputs():
 @pytest.mark.parametrize("arch,S", [("llama3_2_1b", 32),
                                     ("mamba2_130m", 64)])
 @pytest.mark.parametrize("remat", [True, False])
-def test_model_grads_through_functions_equal_reference_route(
+def test_model_grads_through_functions_equal_reference_functions(
         arch, S, remat, monkeypatch):
     """One step's parameter gradients with every block's kernel call
     through its Function (``backend="torch"``) against the reference route
