@@ -339,7 +339,8 @@ BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 LM_BATCH, LM_SEQ = 4, 2048
 LM_KERNELS = ("flash_attention", "ssd_scan")
-KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan", "adamw")
+KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan", "adamw",
+                  "rms_norm")
 RTOL_CARD_VS_CPU = 1e-5
 # how much farther from the float32 plain run the bf16 run through a kernel
 # may end than the bf16 plain run
@@ -1571,13 +1572,22 @@ def lm_launches() -> dict:
     return {**fa_mod.launches, **ssd_mod.launches, **aw_mod.launches}
 
 
+def norm_launches() -> dict:
+    """The norm kernel's launches in this process since the last
+    :func:`lm_reset_launches` (forward, backward)."""
+    from repro_torch.kernels import rms_norm as rn_mod
+    return dict(rn_mod.launches)
+
+
 def lm_reset_launches() -> None:
     from repro_torch.kernels import adamw as aw_mod
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import rms_norm as rn_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     fa_mod.reset_launches()
     ssd_mod.reset_launches()
     aw_mod.reset_launches()
+    rn_mod.reset_launches()
 
 
 def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
@@ -2151,6 +2161,8 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
            "ssd_backward_launches": counts["ssd_scan_backward"],
            "adamw_launches": {k: counts[k]
                               for k in ("adamw_sumsq", "adamw_update")},
+           # the norm kernel's (not among the LM kernels the checks sum)
+           "norm_launches": norm_launches(),
            "grad_norms": [h["grad_norm"] for h in tr.history]}
     if pred is not None:
         want = pred["predicted_bytes"]
@@ -3982,6 +3994,121 @@ def ssd_backward_rows(torch, args, dev, report) -> list:
     return rows
 
 
+# phase 21: the norm kernel at the train cells' shapes, (name, rows, width,
+# gated): mamba2-130m's gated norm at d_inner on (16, 2048) tokens,
+# granite-4.0-h-small's at d_inner on (4, 4096), and granite's input norms
+# at d_model, plain; held to CELL_BAR against autograd of the eager chain
+# the models ran before the kernel
+NORM_CELLS = (("mamba2-130m", 32768, 1536, True),
+              ("granite-4.0-h-small", 16384, 8192, True),
+              ("granite-4.0-h-small", 16384, 4096, False))
+
+
+def rms_norm_rows(torch, args, dev, report) -> list:
+    """Phase 21's norm lines (kernel table rows 6, 6a, 6b): at each shape of
+    ``NORM_CELLS`` on seeded bf16 inputs, the kernel's output and its
+    gradients dx, dz and dw through the models' norm against autograd of
+    the eager chain (``backend="torch"``) by the ``CELL_BAR`` bar, the same
+    bits on two calls of each kernel, and two lines: the forward and the
+    backward, each graph-replay ms beside its byte bound, its plain
+    version's ms (the kernels' arithmetic in eager ops) and
+    ``torch.nn.functional.rms_norm``'s on the normed input (its autograd
+    backward for the backward line): the library's yardstick, which the port
+    never calls. The trainers' launches are phase 13's and 18's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import layers as L
+
+    eps = 1e-5
+    trainers = {"mamba2-130m": report.get("lm_train", {}).get(
+        "train", {}).get("ssd_scan", {})}
+    fam = report.get("family_train", {}).get("granite-4.0-h-small")
+    if fam is not None:
+        trainers["granite-4.0-h-small"] = fam["train"]
+    rows, found = [], {}
+    for arch, n, D, gated in NORM_CELLS:
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+        def randn(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen, device=dev)
+                    ).bfloat16()
+
+        x, dout = randn(n, D, scale=2.0), randn(n, D)
+        z = randn(n, D) if gated else None
+        w = 1 + 0.3 * torch.randn(D, generator=gen, device=dev)
+        name = f"rms_norm/{arch} {'gated ' if gated else ''}{D}"
+
+        def through(backend):
+            ins = [t.clone().requires_grad_() for t in (x, w)] + (
+                [z.clone().requires_grad_()] if gated else [])
+            y = L.rms_norm(ins[0], ins[1], eps, gate=ins[2] if gated
+                           else None, backend=backend)
+            dx, dw, *dz = torch.autograd.grad(y, ins, dout)
+            return [y.detach(), dx] + dz + [dw]
+
+        got, want = through("auto"), through("torch")
+        mags = rn.magnitudes(dout, x, z, w, eps)
+        worst = {}
+        for key, k, p, m in zip(["out", "dx"] + (["dz"] if gated else [])
+                                + ["dw"], got, want, mags):
+            ratio = ((k.float() - p.float()).abs()
+                     / (CELL_BAR * (m + p.float().abs()))).nan_to_num(0.0)
+            worst[key] = float(ratio.max())
+        out, rstd = rn.kernel_forward(x, w, eps, z)
+        again = rn.kernel_forward(x, w, eps, z)
+        bwd = rn.kernel_backward(dout, x, z, w, rstd)
+        bwd2 = rn.kernel_backward(dout, x, z, w, rstd)
+        torch.cuda.synchronize()
+        f = found[name] = {
+            "worst_err_over_bar": worst,
+            "same_bits": bool(torch.equal(out, again[0])
+                              and torch.equal(rstd, again[1])
+                              and all(torch.equal(a, b)
+                                      for a, b in zip(bwd, bwd2)))}
+        del got, want, mags, again, bwd, bwd2
+        g = (x if z is None else x * F.silu(z)).detach()
+        wb = w.bfloat16()
+        g_req, wb_req = g.clone().requires_grad_(), wb.clone().requires_grad_()
+        lib_y = F.rms_norm(g_req, (D,), wb_req, eps)
+        tr = trainers.get(arch, {}).get("norm_launches", {})
+        tag = f" ({n}, {D}){' gated' if gated else ''}"
+        fwd_row = kernel_row(
+            torch, name, "rms_norm",
+            "none (the reference's rms_norm, src/repro/models/layers.py, "
+            "is jnp code XLA fuses)",
+            lambda: rn.kernel_forward(x, w, eps, z),
+            lambda: rn.rms_norm_plain(x, w, eps, z),
+            lambda: F.rms_norm(g, (D,), wb, eps), rn.work(x, z),
+            torch.bfloat16, tr.get("rms_norm"), None, tag)
+        bwd_row = kernel_row(
+            torch, name.replace("rms_norm/", "rms_norm_backward/"),
+            "rms_norm", "none (autograd of the reference's rms_norm)",
+            lambda: rn.kernel_backward(dout, x, z, w, rstd),
+            lambda: rn.rms_norm_backward_plain(dout, x, z, w, rstd), None,
+            rn.work_backward(x, z), torch.bfloat16,
+            tr.get("rms_norm_backward"), None, tag)
+        bwd_row["library_ms"] = time_plain_ms(
+            torch, lambda: torch.autograd.grad(lib_y, (g_req, wb_req), dout,
+                                               retain_graph=True), iters=5)
+        for row in (fwd_row, bwd_row):
+            row.update(f, bound_share=row["bound_ms"] / row["ms"],
+                       train_step_ms=trainers.get(arch, {}).get("step_ms"))
+            print(f"{row['name']}: {json.dumps(row)}")
+            rows.append(row)
+        del x, z, w, dout, out, rstd, g, wb, g_req, wb_req, lib_y
+        torch.cuda.empty_cache()
+    report["rms_norm"] = found
+    for name, f in found.items():
+        check(all(v <= 1.0 for v in f["worst_err_over_bar"].values()),
+              f"{name}: the output and every gradient within {CELL_BAR} x "
+              f"(the terms' magnitude + |plain|) of the eager chain's "
+              f"(worst element at {f['worst_err_over_bar']} of its bar)")
+        check(f["same_bits"], f"{name}: two calls of each kernel give the "
+              f"same bits")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=500)
@@ -4488,6 +4615,7 @@ def main(argv=None) -> int:
     # -- 21. the LM kernels at a train cell's own inputs -----------------------
     kernels += cell_kernel_phase(torch, args, dev, report)
     kernels += ssd_backward_rows(torch, args, dev, report)
+    kernels += rms_norm_rows(torch, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

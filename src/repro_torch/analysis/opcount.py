@@ -21,7 +21,8 @@ What each op counts, per device:
   convolutions) from ``torch.utils.flop_counter``'s formulas; the kernel
   ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``,
   ``repro_torch::ssd_scan_backward``, ``repro_torch::adamw_sumsq``,
-  ``repro_torch::adamw_update``) their modules' work functions
+  ``repro_torch::adamw_update``, ``repro_torch::rms_norm``,
+  ``repro_torch::rms_norm_backward``) their modules' work functions
   (:data:`KERNEL_WORK`); :data:`MOVES` (copies,
   casts, fills, concatenation) none; every other op 1 per output element,
   as the reference counts its elementwise and reduce ops.
@@ -62,6 +63,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rms_norm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
 # the kernels' registered ops: (bytes, operations) from their args
@@ -76,6 +78,9 @@ KERNEL_WORK = {
         _aw.sumsq_work(grads),
     "repro_torch.adamw_update": lambda params, grads, m, v, decays, *_:
         _aw.update_work(params, grads, m, v, decays),
+    "repro_torch.rms_norm": lambda x, gate, w, eps: _rn.work(x, gate),
+    "repro_torch.rms_norm_backward": lambda dout, x, gate, w, rstd:
+        _rn.work_backward(x, gate),
 }
 
 # ops that move or fill memory and compute nothing: bytes, no FLOPs

@@ -108,14 +108,14 @@ class HybridMoELM(nn.Module):
 
 def _layer_apply(p, x, cfg, positions, backend):
     r = cfg.residual_multiplier
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps, backend=backend)
     if hasattr(p, "mamba"):
         mixed = SSM.ssm_mixer(p.mamba, h, cfg, backend)
     else:
         mixed = L.attention_apply(p.attn, h, cfg, positions=positions,
                                   backend=backend)
     x = x + mixed * r
-    h = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    h = L.rms_norm(x, p.ln2, cfg.norm_eps, backend=backend)
     out, aux = MOE.moe_apply(p.moe, h, cfg)
     if hasattr(p, "shared"):
         out = out + MOE.shared_apply(p.shared, h)
@@ -140,7 +140,7 @@ def forward(model: HybridMoELM, cfg: ModelConfig, batch, *,
         x, a = L.remat_apply(cfg, _layer_apply, blk, x, cfg, positions,
                              backend)
         aux = {k: aux[k] + a[k] for k in aux}
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps, backend=backend)
     return L.unembed_apply(model.embed, x) / cfg.logits_scaling, aux
 
 

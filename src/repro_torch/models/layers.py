@@ -43,10 +43,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.distributed.sharding import (WHOLE, all_reduce, constrain,
-                                               is_dtensor, mesh_dim_of,
+                                               is_dtensor, local, mesh_dim_of,
                                                shard_local, unshard)
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import rms_norm as _rms_norm
 from repro_torch.kernels.ref import (BLOCK_KV, BLOCK_Q,  # noqa: F401
                                      _sdpa, reference_attention)
 from repro_torch.kernels.ref import repeat_kv as _repeat_kv
@@ -95,12 +97,42 @@ def remat_apply(cfg, fn, *args):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, eps: float = 1e-5):
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(dtype)
+def rms_norm(x, scale, eps: float = 1e-5, *, gate=None,
+             backend: str = "auto"):
+    """The RMS norm of x's last dimension times ``scale`` (float32), in x's
+    dtype; with a ``gate``, the norm of ``x * silu(gate)``, the Mamba
+    mixer's gated norm. For bfloat16 x on the card (``_build.route``
+    answers ``"kernel"``; fake tensors too) whose last dimension is whole
+    on each device, the hand-written kernel (``kernels/rms_norm.py``), on
+    each rank's own rows under a mesh; else the eager chain in float32:
+    float32 inputs (``add_norm``'s unrounded sum), the CPU,
+    ``backend="torch"``, and a ``DTensor`` sharded on the normed dimension,
+    whose mean DTensor reduces across ranks. While a profiler records, each
+    call adds its rows (this rank's) to the counter ``norm/rows``."""
+    if spans.enabled():
+        rows = local(x)
+        spans.count("norm/rows", rows.numel() // max(rows.shape[-1], 1))
+    if x.dtype == torch.bfloat16 and _build.route(x, backend) == "kernel" \
+            and mesh_dim_of(x, x.dim() - 1) is None:
+        return _norm_kernel(x, scale, eps, gate, backend)
+    return _rms_norm.rms_norm_plain(x, scale, eps, gate)[0]
+
+
+def _norm_kernel(x, scale, eps, gate, backend):
+    """The kernel's norm; under a mesh on each rank's rows, the scale whole
+    on every rank (its gradient summed over the ranks that split the
+    rows), the gate laid out as x."""
+    if not is_dtensor(x):
+        return _rms_norm.rms_norm(x, scale, eps, gate=gate, backend=backend)
+    rows = 1 if x.dim() >= 3 else None     # (batch, seq, ...): seq may split
+    args, dims = (x, scale), (rows, WHOLE)
+    if gate is not None:
+        args, dims = args + (gate,), dims + (rows,)
+
+    def per_rank(xl, sl, *gl, heads):
+        return _rms_norm.rms_norm(xl, sl, eps, gate=gl[0] if gl else None,
+                                  backend=backend)
+    return shard_local(per_rank, args, dims)
 
 
 def add_norm(x, a, scale, eps):

@@ -251,9 +251,9 @@ def _rglru_out_decode(p, h_in, cfg, conv_state, rec_state):
 # norms it: ``L.add_norm`` does both, with the reference's rounding.
 
 
-def _group_apply(gp, x, cfg, positions):
+def _group_apply(gp, x, cfg, positions, backend):
     eps = cfg.norm_eps
-    h = L.rms_norm(x, gp.r1.ln, eps)
+    h = L.rms_norm(x, gp.r1.ln, eps, backend=backend)
     x, h = L.add_norm(x, _rglru_out(gp.r1, h, cfg), gp.m1.ln, eps)
     x, h = L.add_norm(x, L.mlp_apply(gp.m1.mlp, h), gp.r2.ln, eps)
     x, h = L.add_norm(x, _rglru_out(gp.r2, h, cfg), gp.m2.ln, eps)
@@ -265,8 +265,8 @@ def _group_apply(gp, x, cfg, positions):
     return x + L.mlp_apply(gp.m3.mlp, h)
 
 
-def _extra_apply(ep, x, cfg):
-    h = L.rms_norm(x, ep.r.ln, cfg.norm_eps)
+def _extra_apply(ep, x, cfg, backend):
+    h = L.rms_norm(x, ep.r.ln, cfg.norm_eps, backend=backend)
     x, h = L.add_norm(x, _rglru_out(ep.r, h, cfg), ep.m.ln, cfg.norm_eps)
     return x + L.mlp_apply(ep.m.mlp, h)
 
@@ -275,18 +275,19 @@ def forward(model: HybridLM, cfg: ModelConfig, batch, *,
             backend: str = "auto"):
     """batch: {"tokens": (B,S) int}; above ``attn_window`` positions S must
     be a multiple of it. Returns (logits over the padded vocabulary, {}).
-    No kernel runs here, so ``backend`` changes nothing."""
-    del backend
+    ``backend`` goes to the norm kernel (the block's first norm and the
+    final one; ``add_norm`` norms a float32 sum)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_apply(model.embed, tokens, getattr(torch, cfg.dtype))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     for gp in model.groups:
-        x = L.remat_apply(cfg, _group_apply, gp, x, cfg, positions)
+        x = L.remat_apply(cfg, _group_apply, gp, x, cfg, positions,
+                          backend)
     for ep in getattr(model, "extra", ()):
-        x = L.remat_apply(cfg, _extra_apply, ep, x, cfg)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+        x = L.remat_apply(cfg, _extra_apply, ep, x, cfg, backend)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps, backend=backend)
     return L.unembed_apply(model.embed, x), {}
 
 

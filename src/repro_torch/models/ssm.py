@@ -147,7 +147,7 @@ def _ssm_pre(p, x, cfg):
 def _ssm_block_apply(p, x, cfg: ModelConfig, backend: str):
     """Full-sequence (prefill) Mamba-2 block: the input norm, the mixer,
     the residual add."""
-    h_in = L.rms_norm(x, p.ln, cfg.norm_eps)
+    h_in = L.rms_norm(x, p.ln, cfg.norm_eps, backend=backend)
     return x + ssm_mixer(p, h_in, cfg, backend).to(x.dtype)
 
 
@@ -172,7 +172,7 @@ def ssm_mixer(p, h_in, cfg: ModelConfig, backend: str):
     Y = ssd_y(Xdt, Adt, Bc, Cc, min(cfg.ssm_chunk, S), backend)
     Y = Y + Xh * p.D.to(Xh.dtype)[None, None, :, None]
     y = merge_heads(Y)
-    y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
+    y = L.rms_norm(y, p.norm, cfg.norm_eps, gate=z, backend=backend)
     out = y @ p.w_out.to(h_in.dtype)
     return constrain(out, "batch", "seq", None)
 
@@ -235,7 +235,7 @@ def _ssm_block_decode(p, x, cfg, conv_state, ssm_state):
     else:
         Yh, ssm_state = _ssd_decode(*args)
     y = merge_heads(Yh)[:, None, :]
-    y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
+    y = L.rms_norm(y, p.norm, cfg.norm_eps, gate=z)
     out = y @ p.w_out.to(x.dtype)
     return x + out.to(x.dtype), new_conv_state, ssm_state
 
@@ -249,11 +249,11 @@ def forward(model: MambaLM, cfg: ModelConfig, batch, *,
             backend: str = "auto"):
     """batch: {"tokens": (B,S) int}, S a multiple of min(ssm_chunk, S).
     Returns (logits over the padded vocabulary, {}). ``backend`` goes to
-    the SSD kernel."""
+    the SSD and norm kernels."""
     x = L.embed_apply(model.embed, batch["tokens"], getattr(torch, cfg.dtype))
     for blk in model.blocks:
         x = L.remat_apply(cfg, _ssm_block_apply, blk, x, cfg, backend)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps, backend=backend)
     return L.unembed_apply(model.embed, x), {}
 
 

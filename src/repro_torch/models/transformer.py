@@ -139,7 +139,7 @@ def _block_apply(p, x, cfg, positions, backend):
         return constrain(t, "batch", "seq", None) if sp else t
 
     x = to_sp(x)
-    h = to_full(L.rms_norm(x, p.ln1, cfg.norm_eps))
+    h = to_full(L.rms_norm(x, p.ln1, cfg.norm_eps, backend=backend))
     x, h = L.add_norm(x, to_sp(L.attention_apply(
         p.attn, h, cfg, positions=positions, window=cfg.attn_window,
         backend=backend)), p.ln2, cfg.norm_eps)
@@ -147,8 +147,8 @@ def _block_apply(p, x, cfg, positions, backend):
     return x + to_sp(out), aux
 
 
-def _cross_block_apply(p, x, cfg, context):
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+def _cross_block_apply(p, x, cfg, context, backend="auto"):
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps, backend=backend)
     x, h = L.add_norm(x, torch.tanh(p.gate_attn).to(x.dtype)
                       * L.cross_attention_apply(p.xattn, h, context), p.ln2,
                       cfg.norm_eps)
@@ -189,8 +189,8 @@ def forward(model: TransformerLM, cfg: ModelConfig, batch, *,
             aux = {k: aux[k] + a[k] for k in aux}
         if cross is not None:
             x = L.remat_apply(cfg, _cross_block_apply, cross, x, cfg,
-                              context)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+                              context, backend)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps, backend=backend)
     return L.unembed_apply(model.embed, x), aux
 
 

@@ -101,8 +101,8 @@ class WhisperLM(nn.Module):
         self.final_norm.fill_(1.0)
 
 
-def _enc_block_apply(p, x, cfg):
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+def _enc_block_apply(p, x, cfg, backend):
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps, backend=backend)
     q = L.project_heads(h, p.attn.wq)
     k = L.project_heads(h, p.attn.wk)
     v = L.project_heads(h, p.attn.wv)
@@ -112,17 +112,18 @@ def _enc_block_apply(p, x, cfg):
     return x + L.mlp_apply(p.mlp, h)
 
 
-def encode(model: WhisperLM, cfg: ModelConfig, frames):
+def encode(model: WhisperLM, cfg: ModelConfig, frames, *,
+           backend: str = "auto"):
     """frames: (B, F, D) stub frontend output -> (B, F, D) encoder states in
-    the model's dtype."""
+    the model's dtype; ``backend`` goes to the norm kernel."""
     x = frames.to(getattr(torch, cfg.dtype))
     for blk in model.encoder:
-        x = L.remat_apply(cfg, _enc_block_apply, blk, x, cfg)
-    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+        x = L.remat_apply(cfg, _enc_block_apply, blk, x, cfg, backend)
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps, backend=backend)
 
 
 def _dec_block_apply(p, x, cfg, positions, enc_out, backend):
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps, backend=backend)
     x, h = L.add_norm(x, L.attention_apply(p.attn, h, cfg, positions=positions,
                                           backend=backend), p.ln2,
                      cfg.norm_eps)
@@ -138,14 +139,14 @@ def forward(model: WhisperLM, cfg: ModelConfig, batch, *,
     attention kernel."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    enc_out = encode(model, cfg, batch["frames"])
+    enc_out = encode(model, cfg, batch["frames"], backend=backend)
     x = L.embed_apply(model.embed, tokens, getattr(torch, cfg.dtype))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     for blk in model.decoder:
         x = L.remat_apply(cfg, _dec_block_apply, blk, x, cfg, positions,
                           enc_out, backend)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps, backend=backend)
     return L.unembed_apply(model.embed, x), {}
 
 

@@ -33,7 +33,10 @@ held expert), ``moe/held_kept`` (those that found a slot) and
 ``moe/held_slots`` (G·held·C). Counters of the SSD scan's backward
 (``kernels/ssd_scan.py``): ``ssd/backward_calls`` (every backward of
 ``SSDScan``) and ``ssd/backward_kernel_calls`` (each launch of the
-backward kernel).
+backward kernel). Counters of the norms: ``norm/rows`` (the rows of every
+forward call of ``models/layers.rms_norm``, this rank's) and
+``norm/kernel_rows`` (the rows of each launch of the norm's forward
+kernel, ``kernels/rms_norm.py``).
 """
 from __future__ import annotations
 

@@ -417,6 +417,8 @@ for arch, kinds in (("llama3.2-1b", ("train", "prefill", "decode")),
                "flash": c.kernel_nodes("flash_attention"),
                "ssd": c.kernel_nodes("ssd_scan"),
                "ssd_backward": c.kernel_nodes("ssd_scan_backward"),
+               "norm": [c.kernel_nodes("rms_norm"),
+                        c.kernel_nodes("rms_norm_backward")],
                "temp": c.peak_bytes,
                "adamw": [c.kernel_nodes("adamw_sumsq"),
                          c.kernel_nodes("adamw_update")],
@@ -502,6 +504,24 @@ def test_ssd_backward_nodes_per_layer(mesh_run, cell, nodes):
     and models without SSD layers run none."""
     rec = mesh_run["cells"][cell]
     assert rec["ssd_backward"] == nodes * rec["layers"]
+
+
+@pytest.mark.parametrize("cell,forward,backward", [
+    ("mamba2-130m train", 2, 1), ("mamba2-130m prefill", 1, 0),
+    ("mamba2-130m decode", 1, 0), ("llama3.2-1b train", 2, 1),
+    ("llama3.2-1b prefill", 1, 0)])
+def test_norm_nodes_per_layer(mesh_run, cell, forward, backward):
+    """The bf16 norms whose normed dim is whole on the (4, 2) mesh are one
+    ``repro_torch::rms_norm`` node each (the kernel, as the card runs it),
+    on each rank's rows: a block's input norm (twice in a train step, remat
+    recomputing it) and the final norm, with one backward node each. The
+    mixer's gated norm at d_inner and llama's second norm (``add_norm``'s
+    float32 sum) keep the eager chain: the first's width is split over the
+    model axis, whose mean DTensor reduces across ranks."""
+    rec = mesh_run["cells"][cell]
+    train = cell.endswith("train")
+    assert rec["norm"] == [forward * rec["layers"] + 1,
+                           backward * rec["layers"] + int(train)]
 
 
 @pytest.mark.parametrize("cell,nodes", [
