@@ -220,7 +220,8 @@ process group cannot share a process with phase 15's NCCL group):
      HBM bytes and all-gathers per device per token printed, the
      collective bytes at most 300 MB (decode attention gathers neither
      the seq-sharded cache nor its scores). (d) phase 18's configurations,
-     each chosen from its trace on a fake (1, 1) ``cuda`` mesh: from the
+     each chosen from its trace on a fake (1, 1) ``cuda`` mesh (granite's
+     and jamba's with no mesh, as one card runs them): from the
      published depth down, float32 Adam moments before bfloat16, the first
      whose arguments and peak temporaries are predicted at most 72 GB; its
      prediction and roofline bound are printed. The kernels' line adds the
@@ -245,25 +246,29 @@ after phase 15):
 Training the remaining families, after phase 16, one model at a time:
 
  18. for dbrx-132b, llama-3.2-vision-90b, whisper-tiny,
-     recurrentgemma-2b and granite-4.0-h-small at every width as
-     published, at phase 16 (d)'s configuration (dbrx-132b 1 of 40 layers,
-     the vision model 2 self + 1 cross layers, both with bfloat16 Adam
+     recurrentgemma-2b, granite-4.0-h-small and jamba2-3b at every width
+     as published, at phase 16 (d)'s configuration (dbrx-132b 1 of 40 layers,
+     the vision model 3 self + 1 cross layers, both with bfloat16 Adam
      moments; whisper-tiny whole; recurrentgemma-2b whole with bfloat16
      moments; granite one card's share, searched from one period of its
      pattern down: 10 of 40 layers, 9 of each layer's 72 experts, as its
-     benchmark cell), on (4, 2048) tokens ((4, 448) for whisper's decoder,
-     with 1,500 frames; the vlm with 1,024 patches; (4, 4096) for
-     granite): one float32 SMOKE train step on the card and on the CPU
-     (loss and grad norm within 1e-4 relative); where the family launches
-     the flash kernel, granite aside, one step's gradients through it
+     benchmark cell; jamba2-3b whole with float32 moments, as its cell),
+     on (4, 2048) tokens ((4, 448) for whisper's decoder, with 1,500
+     frames; the vlm with 1,024 patches; (4, 4096) for granite; (1,
+     16384) for jamba, its cell's): one float32 SMOKE train step on the
+     card and on the CPU (loss and grad norm within 1e-4 relative; not
+     jamba, whose scan kernel takes bf16 only); where the family launches
+     the flash kernel, granite and jamba aside, one step's gradients
+     through it
      against the plain path at that configuration (phase 13's float32 and
      bf16 per-tensor bars; launches and recomputes as derived); then
      ``Trainer.run`` for
      ``--train-steps`` steps, the vlm gates set to 0.5 and -0.3 first:
      every gradient after step 1 finite and not all zero, every loss finite
      and the last 3 below the first 3, flash launches and backward
-     recomputes per step as derived from the config (2 / 1, 4 / 2, 8 / 4,
-     0 / 0, 2 / 1; granite's SSD scan 18 / 0 and 9 backward-kernel
+     recomputes per step as derived from the config (2 / 1, 6 / 3, 8 / 4,
+     0 / 0, 2 / 1, 4 / 2; granite's SSD scan 18 / 0 and 9 backward-kernel
+     launches; jamba's selective scan 52 forward and 26 backward kernel
      launches), the optimizer's two kernels
      launched once each a step, the
      peak allocation over what was allocated before the
@@ -272,7 +277,8 @@ Training the remaining families, after phase 16, one model at a time:
      (device ms of ``FlashAttentionBackward``, ``moe/route``,
      ``rglru/scan``, ``attention/local``, and granite's
      ``SSDScanBackward``, ``moe/experts``, ``MoEExpertsBackward`` and
-     ``moe/shared``, where they exist; idle share).
+     ``moe/shared``, jamba's ``SelectiveScanBackward``, where they exist;
+     idle share).
      Each cut goes into the report's ``reduced`` list with its predicted
      GB; the kernels' line adds the ``train_*`` keys to the
      ``flash_attention/<arch>`` rows. Its wall time is printed.
@@ -312,6 +318,22 @@ The kernels at a train cell's own inputs, after phase 18:
      same bits on two calls; lines with the float32 recompute's ms beside
      (what the backward ran before) and the launches of phases 13 and 18.
 
+The Mamba-1 selective scan (to run it alone, a scratch script builds
+``selective_scan`` with ``_build.build_all`` and calls
+``selective_scan_rows(torch, args, dev, {})`` with ``args.seed`` set):
+
+ 22. the selective-scan kernel at jamba2-3b's cell, (1, 16384, 5120, 16),
+     on seeded inputs (bf16 u, delta_raw, B, C, z; delta's bias and A
+     drawn as the model draws them): y within 2**-8 of its plain version
+     in norm (bf16 keeps 2**-9 of a value), the kept states within 2**-12,
+     and every gradient of the backward kernel within 2**-6 in norm of the
+     plain backward's, taken on slices of 512 channels (each channel scans
+     alone; dB and dC add up over the slices); the same bits on two calls;
+     two lines (forward, backward: graph-replay ms beside the bound at the
+     float32 peak, the plain version's ms; no PyTorch call computes the
+     scan), the report's entries keyed by name; each line with the
+     launches of phase 18's ``Trainer.run`` of jamba2-3b.
+
 Launch counts are zeroed just before each path's main run and read just
 after it. Any failed check exits non-zero. The last line is the JSON
 result; the line before it lists every kernel with its launches, error,
@@ -340,7 +362,7 @@ FP32_OPS_PER_S = 67e12
 LM_BATCH, LM_SEQ = 4, 2048
 LM_KERNELS = ("flash_attention", "ssd_scan")
 KERNEL_SOURCES = ("forest_eval", "flash_attention", "ssd_scan", "adamw",
-                  "rms_norm")
+                  "rms_norm", "selective_scan")
 RTOL_CARD_VS_CPU = 1e-5
 # how much farther from the float32 plain run the bf16 run through a kernel
 # may end than the bf16 plain run
@@ -489,7 +511,7 @@ RANGES = ("train_step/", "rglru/", "attention/", "moe/")
 TRACED_SPANS = ("train_step/forward", "train_step/optimizer",
                 "FlashAttentionBackward", "SSDScanBackward", "rglru/scan",
                 "attention/local", "moe/route", "moe/experts",
-                "MoEExpertsBackward", "moe/shared")
+                "MoEExpertsBackward", "moe/shared", "SelectiveScanBackward")
 
 
 def kernel_kind(key) -> str:
@@ -1568,8 +1590,10 @@ def median_ms(torch, fn, calls=5):
 def lm_launches() -> dict:
     from repro_torch.kernels import adamw as aw_mod
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import selective_scan as ss_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
-    return {**fa_mod.launches, **ssd_mod.launches, **aw_mod.launches}
+    return {**fa_mod.launches, **ssd_mod.launches, **aw_mod.launches,
+            **ss_mod.launches}
 
 
 def norm_launches() -> dict:
@@ -1583,11 +1607,13 @@ def lm_reset_launches() -> None:
     from repro_torch.kernels import adamw as aw_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import rms_norm as rn_mod
+    from repro_torch.kernels import selective_scan as ss_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     fa_mod.reset_launches()
     ssd_mod.reset_launches()
     aw_mod.reset_launches()
     rn_mod.reset_launches()
+    ss_mod.reset_launches()
 
 
 def lm_prefill(torch, np, arch, kernel, args, dev) -> dict:
@@ -1993,12 +2019,16 @@ def kernel_layers(cfg, kernel="flash_attention") -> int:
     causal self-attention layers (the transformer's blocks, the Whisper
     decoder's, the hybrid_moe's attention layers; none for the hybrid,
     whose layers all have a window and take the plain local attention, or
-    for the ssm); for the SSD scan the ssm's Mamba-2 blocks and the
-    hybrid_moe's Mamba layers."""
-    if cfg.family == "hybrid_moe":
+    for the ssm; jamba's attention layers); for the SSD scan the ssm's
+    Mamba-2 blocks and the hybrid_moe's Mamba layers; for the selective
+    scan jamba's Mamba-1 layers."""
+    if cfg.family in ("hybrid_moe", "jamba"):
         pat = cfg.hybrid_pattern
         kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
-        return kinds.count("mamba" if kernel == "ssd_scan" else "attention")
+        return kinds.count({"ssd_scan": "mamba", "selective_scan": "mamba1",
+                            "flash_attention": "attention"}[kernel])
+    if kernel == "selective_scan":
+        return 0
     if kernel == "ssd_scan":
         return cfg.num_layers if cfg.family == "ssm" else 0
     return 0 if cfg.family in ("hybrid", "ssm") else cfg.num_layers
@@ -2010,8 +2040,9 @@ def per_train_step(cfg, kernel="flash_attention") -> tuple:
     in the forward and, with ``cfg.remat``, again when
     ``torch.utils.checkpoint`` recomputes its block in the backward (each
     forward launches through the kernel's Function); each Function's
-    backward recomputes the reference's function once, but the SSD scan's
-    with bfloat16 activations, which launches the backward kernel instead
+    backward runs once and recomputes: flash attention's the scores, a
+    block of queries at a time, the SSD scan's ``ssd_chunked``, but with
+    bfloat16 activations the SSD scan launches the backward kernel instead
     (:func:`ssd_backward_launches`)."""
     n = kernel_layers(cfg, kernel)
     return n * (2 if cfg.remat else 1), n - ssd_backward_launches(cfg, kernel)
@@ -2025,6 +2056,16 @@ def ssd_backward_launches(cfg, kernel="ssd_scan") -> int:
     if kernel != "ssd_scan" or cfg.dtype != "bfloat16":
         return 0
     return kernel_layers(cfg, "ssd_scan")
+
+
+def scan_launches(cfg) -> dict:
+    """Launches of the selective scan's forward and backward kernels (one
+    each a call) in one train step on the card, from the config: the
+    forward once a Mamba-1 layer and again in its remat recompute, the
+    backward once a layer."""
+    n = kernel_layers(cfg, "selective_scan")
+    return {"selective_scan": n * (2 if cfg.remat else 1),
+            "selective_scan_backward": n}
 
 
 def train_counts() -> dict:
@@ -2050,9 +2091,9 @@ MEM_VS_PREDICTED = 0.05
 
 
 def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
-             hp=None, pred=None) -> dict:
-    """``Trainer.run`` of ``cfg`` for ``args.train_steps`` steps on (4,
-    ``seq``) tokens, float32 params, bf16 activations, remat; Adam state
+             hp=None, pred=None, batch=LM_BATCH) -> dict:
+    """``Trainer.run`` of ``cfg`` for ``args.train_steps`` steps on
+    (``batch``, ``seq``) tokens, float32 params, bf16 activations, remat; Adam state
     as ``hp`` says (the trainer's own by default: float32). Phase 13: the
     dense and ssm models at full width and depth; with ``ckpt_dir`` it
     checkpoints mid-run and checks the restore on the card and on the CPU.
@@ -2073,7 +2114,7 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     base = torch.cuda.memory_allocated()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, TrainConfig(seq_len=seq, global_batch=LM_BATCH,
+    tr = Trainer(cfg, TrainConfig(seq_len=seq, global_batch=batch,
                                   num_steps=steps, log_every=0,
                                   ckpt_every=mid if ckpt_dir else 0,
                                   ckpt_dir=ckpt_dir, seed=args.seed),
@@ -2095,6 +2136,10 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     check(c1["ssd_scan_backward"] == ssd_backward_launches(cfg),
           f"{arch} train step 1: {c1['ssd_scan_backward']} SSD backward "
           f"kernel launches (derived {ssd_backward_launches(cfg)})")
+    scans = scan_launches(cfg)
+    check(all(c1[k] == n for k, n in scans.items()),
+          f"{arch} train step 1: selective-scan launches "
+          f"{ {k: c1[k] for k in scans} } (derived {scans})")
     check(c1["adamw_sumsq"] == c1["adamw_update"] == 1,
           f"{arch} train step 1: {c1['adamw_sumsq']} adamw_sumsq and "
           f"{c1['adamw_update']} adamw_update launches (1 each)")
@@ -2129,6 +2174,9 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
           f"{arch} Trainer.run, {steps} steps: "
           f"{counts['ssd_scan_backward']} SSD backward kernel launches "
           f"({ssd_backward_launches(cfg)} a step)")
+    check(all(counts[k] == n * steps for k, n in scans.items()),
+          f"{arch} Trainer.run, {steps} steps: selective-scan launches "
+          f"{ {k: counts[k] for k in scans} } ({scans} a step)")
     check(counts["adamw_sumsq"] == counts["adamw_update"] == steps,
           f"{arch} Trainer.run, {steps} steps: {counts['adamw_sumsq']} "
           f"adamw_sumsq and {counts['adamw_update']} adamw_update launches "
@@ -2144,7 +2192,7 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
     rep = {"params": n_params, "init_s": init_s, "steps": steps,
            "losses": losses, "step_ms": step_ms,
            "step_ms_all": [1e3 * h["step_time_s"] for h in tr.history],
-           "tokens_per_s": LM_BATCH * seq / step_ms * 1e3,
+           "tokens_per_s": batch * seq / step_ms * 1e3,
            "peak_mem_gb": peak / 1e9,
            "peak_over_base_gb": (peak - base) / 1e9,
            # cudaMalloc retries after freeing the cache in this run: a
@@ -2159,6 +2207,7 @@ def lm_train(torch, np, cfg, kernel, args, dev, ckpt_dir=None, seq=LM_SEQ,
            "backward_recomputes": counts[f"{kernel}/backward"],
            "kernel_launches": {k: counts[k] for k in LM_KERNELS},
            "ssd_backward_launches": counts["ssd_scan_backward"],
+           "scan_launches": {k: counts[k] for k in scans},
            "adamw_launches": {k: counts[k]
                               for k in ("adamw_sumsq", "adamw_update")},
            # the norm kernel's (not among the LM kernels the checks sum)
@@ -3548,10 +3597,14 @@ def dryrun_phase(torch, args, report) -> dict:
 # ---------------------------------------------------------------------------
 
 # (arch, tokens per sequence) of phase 18; Whisper's decoder context is
-# 448; granite-4.0-h-small at its benchmark cell's (4, 4096)
+# 448; granite-4.0-h-small at its benchmark cell's (4, 4096); jamba2-3b at
+# its cell's 16,384 tokens a sequence
 FAMILY_TRAIN = (("dbrx-132b", LM_SEQ), ("llama-3.2-vision-90b", LM_SEQ),
                 ("whisper-tiny", 448), ("recurrentgemma-2b", LM_SEQ),
-                ("granite-4.0-h-small", 4096))
+                ("granite-4.0-h-small", 4096), ("jamba2-3b", 16384))
+# sequences a phase-18 step takes where not LM_BATCH: jamba2-3b one, as its
+# cell (four 16k sequences' float32 logits over 65,536 pass the card alone)
+TRAIN_BATCH = {"jamba2-3b": 1}
 # a hybrid_moe model trains in phase 18 as one card of its benchmark cell's
 # deployment holds it (perfbench/configs/granite-4.0-h-small-p1.json): at
 # most one period of its layer pattern, and experts 0 .. E/8 - 1 of each
@@ -3604,7 +3657,8 @@ def train_hparams(steps, state_dtype):
 
 
 def choose_train_cut(torch, arch, seq, mesh) -> dict:
-    """Phase 18's configuration of ``arch`` on (4, ``seq``) tokens, chosen
+    """Phase 18's configuration of ``arch`` on (batch, ``seq``) tokens
+    (``TRAIN_BATCH``, else LM_BATCH sequences), chosen
     from the dry-run's prediction, never by trial on the card: from
     :func:`train_depths`'s first down, float32 Adam moments before
     bfloat16, the first
@@ -3621,7 +3675,8 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
     from repro_torch.launch import steps as ST
 
     full = CB.get_config(arch)
-    shape = CB.ShapeConfig(f"phase18_{arch}", seq, LM_BATCH, "train")
+    batch = TRAIN_BATCH.get(arch, LM_BATCH)
+    shape = CB.ShapeConfig(f"phase18_{arch}", seq, batch, "train")
     tried, untraced = [], 0
     for depth in train_depths(full):
         cfg = train_cut(full, depth)
@@ -3632,10 +3687,11 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
             cand = {"depth": depth, "state_dtype": sd}
             tried.append(cand)
             t0 = time.perf_counter()
-            if cfg.family == "hybrid_moe":
-                # a share of the experts has no mesh path: the step as
-                # one card runs it, with no mesh
-                one = DR.one_card_train(cfg, train_hparams(2, sd), LM_BATCH,
+            if cfg.family in ("hybrid_moe", "jamba"):
+                # a share of the experts, and the selective scan's op,
+                # have no mesh path: the step as one card runs it, with
+                # no mesh (jamba's cell: the whole model a card)
+                one = DR.one_card_train(cfg, train_hparams(2, sd), batch,
                                         seq, device=mesh.device_type)
                 args_bytes, temp = one["argument_bytes"], one["temp_bytes"]
                 flops, hbm, coll = one["flops"], one["hbm_bytes"], 0.0
@@ -3662,7 +3718,7 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
                 collective_bytes_per_dev=coll,
                 model_flops_global=RL.model_flops(cfg, shape),
                 per_device_memory=float(total))
-            rec = {"arch": arch, "seq": seq, "depth": depth,
+            rec = {"arch": arch, "batch": batch, "seq": seq, "depth": depth,
                    "published_depth": full.num_layers,
                    "cross_attn_every": cfg.cross_attn_every,
                    "state_dtype": sd, "params": cfg.param_count(),
@@ -3672,7 +3728,7 @@ def choose_train_cut(torch, arch, seq, mesh) -> dict:
                    "bottleneck": rl.bottleneck, "flops": flops,
                    "hbm_bytes": hbm, "flash_nodes": flash,
                    "tried": tried, "untraced_over_budget": untraced}
-            print(f"{arch} train on (4, {seq}): {json.dumps(rec)}")
+            print(f"{arch} train on ({batch}, {seq}): {json.dumps(rec)}")
             return rec
     raise SmokeFailure(f"{arch}: no cut's train step is predicted within "
                        f"{TRAIN_BUDGET_BYTES / 1e9:.0f} GB ({tried})")
@@ -3686,7 +3742,11 @@ def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
     16,384 tokens after a kernel's output, are set apart by float32
     differences of ~1e-6 in some tokens, and each such token moves its
     experts' gradients far past the check's bars; its benchmark cell holds
-    its gradients against the plain reference); (c) ``Trainer.run`` with
+    its gradients against the plain reference); jamba takes neither (a)
+    nor (b): the selective-scan kernel takes bf16 only, so a float32 step
+    has no card route, and the plain scan at (4, 16384, 5120, 16) holds
+    5.4 GB a float32 tensor a sequence; its benchmark cell holds its
+    gradients against the plain reference; (c) ``Trainer.run`` with
     launches, recomputes, peak memory and step time held against what was
     derived and predicted before it, and one traced step."""
     from repro_torch.configs import base as CB
@@ -3704,20 +3764,23 @@ def family_train(torch, np, arch, seq, pred, args, dev) -> dict:
           f"{pred['temp_bytes'] / 1e9:.3f}), roofline bound "
           f"{pred['bound_ms']:.1f} ms ({pred['bottleneck']}), {launches} "
           f"flash launches and {recomputes} backward recomputes a step")
-    rep = {"prediction": pred,
-           "card_vs_cpu": smoke_train_card_vs_cpu(torch, np, arch, dev)}
-    if launches and cfg.family != "hybrid_moe":
+    rep = {"prediction": pred}
+    if cfg.family != "jamba":
+        rep["card_vs_cpu"] = smoke_train_card_vs_cpu(torch, np, arch, dev)
+    if launches and cfg.family not in ("hybrid_moe", "jamba"):
         rep["grad_check"] = lm_grad_check(torch, np, cfg, "flash_attention",
                                           args, dev, seq=seq)
     rep["train"] = tr = lm_train(
         torch, np, cfg, "flash_attention", args, dev, seq=seq,
-        hp=train_hparams(args.train_steps, pred["state_dtype"]), pred=pred)
+        hp=train_hparams(args.train_steps, pred["state_dtype"]), pred=pred,
+        batch=pred["batch"])
     spans = tr["trace"]["spans_device_ms"]
     want = (["FlashAttentionBackward"] if launches else []) + (
         ["moe/route"] if cfg.family == "moe" else []) + (
         ["rglru/scan", "attention/local"] if cfg.family == "hybrid" else []
     ) + (["SSDScanBackward", "moe/route", "moe/experts", "MoEExpertsBackward",
-          "moe/shared"] if cfg.family == "hybrid_moe" else [])
+          "moe/shared"] if cfg.family == "hybrid_moe" else []) + (
+        ["SelectiveScanBackward"] if cfg.family == "jamba" else [])
     check(all(spans.get(k, 0) > 0 for k in want),
           f"{arch} traced train step: device ms of "
           f"{ {k: spans.get(k) for k in want} } of "
@@ -4107,6 +4170,123 @@ def rms_norm_rows(torch, args, dev, report) -> list:
         check(f["same_bits"], f"{name}: two calls of each kernel give the "
               f"same bits")
     return rows
+
+
+# phase 22: the selective-scan kernel at jamba2-3b's cell, (arch, (batch,
+# seq, d_inner, d_state)); y by SCAN_Y_BAR and each gradient by SCAN_BAR in
+# norm against the plain version, as the SSD backward's rows are held
+SCAN_CELL = ("jamba2-3b", (1, 16384, 5120, 16))
+SCAN_Y_BAR = 2.0 ** -8
+SCAN_BAR = 2.0 ** -6
+SCAN_SLICE = 512
+
+
+def selective_scan_rows(torch, args, dev, report) -> list:
+    """Phase 22's lines (kernel table rows 7, 7a): the forward and backward
+    kernels (``selective_scan.kernel_forward`` / ``kernel_backward``) at
+    ``SCAN_CELL`` against the plain versions, the same bits on two calls,
+    and their graph-replay ms beside the bound (bytes at the HBM rate, the
+    float32 operations at the float32 peak: the recurrence is float32 on
+    the CUDA cores) and the plain versions' ms. The plain backward runs on
+    slices of ``SCAN_SLICE`` channels, which bounds its memory; its line's
+    plain ms is that sliced run. Where phase 18 trained the model, each
+    line's launches are that ``Trainer.run``'s (``train_*`` keys)."""
+    import math
+    from repro_torch.kernels import selective_scan as SS
+
+    arch, (Bt, S, Dc, N) = SCAN_CELL
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt0 = torch.exp(torch.empty(Dc, device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen))
+    A = -torch.exp(torch.empty(Dc, N, device=dev).uniform_(
+        0, math.log(16), generator=gen))
+    ins = (rn(Bt, S, Dc).bfloat16(), rn(Bt, S, Dc).bfloat16(),
+           dt0 + torch.log(-torch.expm1(-dt0)), A, rn(Bt, S, N).bfloat16(),
+           rn(Bt, S, N).bfloat16(), 1 + 0.1 * rn(Dc),
+           rn(Bt, S, Dc).bfloat16())
+    dy = rn(Bt, S, Dc).bfloat16()
+
+    def gap(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def plain_backward():
+        u, dr, bias, A_, B, C, D, z = ins
+        parts, dB, dC = [], 0, 0
+        for c0 in range(0, Dc, SCAN_SLICE):
+            s = slice(c0, c0 + SCAN_SLICE)
+            g = SS.selective_scan_backward_plain(
+                u[..., s], dr[..., s], bias[s], A_[s], B.float(), C.float(),
+                D[s], z[..., s], dy[..., s])
+            parts.append(g)
+            dB, dC = dB + g[4], dC + g[5]
+        out = [torch.cat([p[i] for p in parts], dim=0 if i == 3 else -1)
+               for i in range(8)]
+        out[4], out[5] = dB, dC
+        return out
+
+    y, kept = SS.kernel_forward(*ins)
+    again = SS.kernel_forward(*ins)
+    grads = SS.kernel_backward(*ins, kept, dy)
+    grads2 = SS.kernel_backward(*ins, kept, dy)
+    torch.cuda.synchronize()
+    py, pkept = SS.selective_scan_plain(*ins)
+    fwd = {"y_norm_gap": gap(y, py), "kept_norm_gap": gap(kept, pkept),
+           "max_abs_err": float((y.float() - py.float()).abs().max()),
+           "same_bits": bool(torch.equal(y, again[0])
+                             and torch.equal(kept, again[1]))}
+    del py, pkept, again
+    torch.cuda.empty_cache()
+    want = plain_backward()
+    bwd = {"norm_gap": {n: gap(g, w) for n, g, w in zip(SS._NAMES, grads,
+                                                        want)},
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(grads, want)),
+           "same_bits": all(torch.equal(a, b) for a, b in zip(grads,
+                                                              grads2))}
+    del want, grads2
+    torch.cuda.empty_cache()
+    tag = f" {(Bt, S, Dc, N)}"
+    name = f"selective_scan/{arch}"
+    # the launches of phase 18's Trainer.run of the model, where it ran
+    tr = report.get("family_train", {}).get(arch, {}).get("train")
+    runs = tr["scan_launches"] if tr else {}
+    fwd_row = kernel_row(
+        torch, name, "selective_scan", "none (the JAX package has no "
+        "Mamba-1 mixer)", lambda: SS.kernel_forward(*ins),
+        lambda: SS.selective_scan_plain(*ins), None, SS.work(ins[0], ins[4]),
+        torch.float32, runs.get("selective_scan"), fwd["max_abs_err"], tag)
+    bwd_row = kernel_row(
+        torch, f"selective_scan_backward/{arch}", "selective_scan",
+        "none (the JAX package has no Mamba-1 mixer)",
+        lambda: SS.kernel_backward(*ins, kept, dy), plain_backward, None,
+        SS.work_backward(ins[0], ins[4]), torch.float32,
+        runs.get("selective_scan_backward"), bwd["max_abs_err"], tag)
+    for row, f, op in ((fwd_row, fwd, "selective_scan"),
+                       (bwd_row, bwd, "selective_scan_backward")):
+        row.update(f, bound_share=row["bound_ms"] / row["ms"])
+        if tr:
+            row.update(train_launches=runs[op],
+                       train_launches_per_step=runs[op] // tr["steps"],
+                       train_step_ms=tr["step_ms"])
+        print(f"{row['name']}: {json.dumps(row)}")
+    report["selective_scan"] = {fwd_row["name"]: fwd, bwd_row["name"]: bwd}
+    check(fwd["y_norm_gap"] <= SCAN_Y_BAR and fwd["kept_norm_gap"]
+          <= 2.0 ** -12, f"{name}: y within {SCAN_Y_BAR} and the kept states "
+          f"within {2.0 ** -12} of the plain version in norm ({fwd})")
+    check(all(v <= SCAN_BAR for v in bwd["norm_gap"].values()),
+          f"{name}: every gradient within {SCAN_BAR} of the plain backward "
+          f"in norm ({bwd['norm_gap']})")
+    check(fwd["same_bits"] and bwd["same_bits"],
+          f"{name}: two calls of each kernel give the same bits")
+    del ins, dy, y, kept, grads
+    torch.cuda.empty_cache()
+    return [fwd_row, bwd_row]
 
 
 def main(argv=None) -> int:
@@ -4616,6 +4796,9 @@ def main(argv=None) -> int:
     kernels += cell_kernel_phase(torch, args, dev, report)
     kernels += ssd_backward_rows(torch, args, dev, report)
     kernels += rms_norm_rows(torch, args, dev, report)
+
+    # -- 22. the selective-scan kernel at jamba2-3b's cell ---------------------
+    kernels += selective_scan_rows(torch, args, dev, report)
 
     if args.out:
         out = pathlib.Path(args.out)

@@ -22,7 +22,8 @@ What each op counts, per device:
   ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``,
   ``repro_torch::ssd_scan_backward``, ``repro_torch::adamw_sumsq``,
   ``repro_torch::adamw_update``, ``repro_torch::rms_norm``,
-  ``repro_torch::rms_norm_backward``) their modules' work functions
+  ``repro_torch::rms_norm_backward``, ``repro_torch::selective_scan``,
+  ``repro_torch::selective_scan_backward``) their modules' work functions
   (:data:`KERNEL_WORK`); :data:`MOVES` (copies,
   casts, fills, concatenation) none; every other op 1 per output element,
   as the reference counts its elementwise and reduce ops.
@@ -64,6 +65,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rms_norm as _rn
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import ssd_scan as _ssd
 
 # the kernels' registered ops: (bytes, operations) from their args
@@ -81,6 +83,10 @@ KERNEL_WORK = {
     "repro_torch.rms_norm": lambda x, gate, w, eps: _rn.work(x, gate),
     "repro_torch.rms_norm_backward": lambda dout, x, gate, w, rstd:
         _rn.work_backward(x, gate),
+    "repro_torch.selective_scan": lambda u, draw, bias, A, B, C, D, z:
+        _ss.work(u, B),
+    "repro_torch.selective_scan_backward":
+        lambda u, draw, bias, A, B, C, D, z, kept, dy: _ss.work_backward(u, B),
 }
 
 # ops that move or fill memory and compute nothing: bytes, no FLOPs

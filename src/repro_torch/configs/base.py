@@ -34,10 +34,12 @@ class ModelConfig:
       - ``hybrid_moe`` Granite-4.0-H: Mamba-2 and attention mixers by
                     ``hybrid_pattern``, each layer's FFN a top-k mixture of
                     experts beside a shared SwiGLU expert
+      - ``jamba``   Jamba2: Mamba-1 (selective-scan) and attention mixers
+                    by ``hybrid_pattern``, each layer's FFN a SwiGLU MLP
     """
 
     name: str
-    family: str  # dense | moe | ssm | hybrid | audio | vlm | hybrid_moe
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | hybrid_moe | jamba
 
     num_layers: int
     d_model: int
@@ -68,10 +70,13 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_conv_width: int = 4
     ssm_chunk: int = 256
+    # Mamba-1 (jamba): the rank of delta's low-rank projection
+    ssm_dt_rank: int = 0
 
     # --- hybrid (RecurrentGemma) ---
     attn_window: int = 0        # local attention window; 0 -> global
-    # e.g. ("rglru","rglru","attn"); hybrid_moe: "mamba" / "attention"
+    # e.g. ("rglru","rglru","attn"); hybrid_moe: "mamba" / "attention";
+    # jamba: "mamba1" / "attention"
     hybrid_pattern: Tuple[str, ...] = ()
     rglru_width: int = 0        # recurrent width (0 -> d_model)
 
@@ -138,8 +143,8 @@ class ModelConfig:
     @property
     def has_decoder(self) -> bool:
         """Whether the family decodes through a cache: all assigned archs
-        (whisper via its decoder), not yet ``hybrid_moe``."""
-        return self.family != "hybrid_moe"
+        (whisper via its decoder), not yet ``hybrid_moe`` or ``jamba``."""
+        return self.family not in ("hybrid_moe", "jamba")
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
@@ -190,6 +195,18 @@ class ModelConfig:
                          if pat[i % len(pat)] == "attention")
             total += (n_attn * attn + (self.num_layers - n_attn) * mamba
                       + self.num_layers * (ffn + 2 * d) + d)  # + final norm
+        elif self.family == "jamba":
+            di, ns, r = self.d_inner, self.ssm_state, self.ssm_dt_rank
+            mamba = (2 * d * di + self.ssm_conv_width * di + di  # conv, bias
+                     + di * (r + 2 * ns) + r + 2 * ns            # x_proj, norms
+                     + r * di + di                               # dt proj, bias
+                     + di * ns + di + di * d)                    # A, D, out
+            attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            pat = self.hybrid_pattern
+            n_attn = sum(1 for i in range(self.num_layers)
+                         if pat[i % len(pat)] == "attention")
+            total += (n_attn * attn + (self.num_layers - n_attn) * mamba
+                      + self.num_layers * (3 * d * dff + 2 * d) + d)
         elif self.family == "audio":
             attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
             enc_layer = attn + 2 * d * dff + d * dff + 2 * d  # self + mlp(gelu->2 mats? use 3)
@@ -231,6 +248,7 @@ ARCH_IDS = (
     "whisper_tiny",
     "llama3_2_vision_90b",
     "granite_4_0_h_small",
+    "jamba2_3b",
 )
 
 # Dashes as they appear in the assignment, mapped to module names.
@@ -246,6 +264,7 @@ _ALIASES = {
     "whisper-tiny": "whisper_tiny",
     "llama-3.2-vision-90b": "llama3_2_vision_90b",
     "granite-4.0-h-small": "granite_4_0_h_small",
+    "jamba2-3b": "jamba2_3b",
 }
 
 

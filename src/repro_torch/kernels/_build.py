@@ -20,8 +20,10 @@ launch raises; nothing falls back to the plain version.
 Gradients (:func:`needs_grad`, :func:`check_no_grad`,
 :func:`recompute_grads`): a kernel fills its output through a raw
 pointer, so the LM wrappers route grad-requiring inputs through an
-``autograd.Function`` whose backward recomputes the reference's own
-function, and a kernel launched on such inputs outside it raises.
+``autograd.Function`` whose backward recomputes from the saved inputs
+(the reference's own function, or for flash attention its scores a
+block at a time), and a kernel launched on such inputs outside it
+raises.
 """
 from __future__ import annotations
 

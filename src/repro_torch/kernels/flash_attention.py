@@ -29,12 +29,14 @@ tensor it fills has no ``grad_fn``. Whenever grad is enabled and an input
 requires it, :func:`flash_attention` goes through :class:`FlashAttention`
 instead: its forward is the kernel (or, for CPU tensors and
 ``backend="torch"``, the plain version), saving q, k and v; its backward
-recomputes the reference's own attention from them
-(``ref.reference_attention``, which the reference's train step
-differentiates; there is no Pallas backward kernel to port) and takes its
-autograd gradient (:data:`backward_recomputes` counts these). Launching
-the kernel on such inputs any other way (:func:`kernel_forward` under
-grad) raises, so no caller can cut the gradient silently.
+recomputes the scores from them and takes the gradients of the
+reference's causal softmax attention (``ref.reference_attention``, which
+the reference's train step differentiates; there is no Pallas backward
+kernel to port) directly, :data:`BACKWARD_BLOCK` queries at a time
+(:func:`blockwise_grads`), so that one block's scores live at a time
+(:data:`backward_recomputes` counts these backwards). Launching the
+kernel on such inputs any other way (:func:`kernel_forward` under grad)
+raises, so no caller can cut the gradient silently.
 """
 from __future__ import annotations
 
@@ -45,15 +47,19 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref, reference_attention
+from repro_torch.kernels.ref import _acc_dtype, flash_attention_ref
 
 # launches of the kernel in this process (the plain version counts none)
 launches: Dict[str, int] = {"flash_attention": 0}
-# backward passes of FlashAttention (each recomputes reference_attention)
+# backward passes of FlashAttention (each recomputes the scores)
 backward_recomputes: Dict[str, int] = {"flash_attention": 0}
 
 BLOCK_Q = BLOCK_KV = 64            # rows of the kernel's query and key tiles
 HEAD_DIMS = (16, 32, 64, 128)      # head dims the kernel is built for
+# queries a block of the backward takes: one block's scores live at a time
+# (on an H100 at the train cells' shapes 1,024 is no faster, with twice
+# the scratch)
+BACKWARD_BLOCK = 512
 
 _SIGNATURES = {
     # q, k, v, out, B, S, H, KV, D, strides[9], scale, dtype, stream
@@ -156,9 +162,9 @@ def _forward(q, k, v, backend: str, scale=None) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel's forward; the backward recomputes
-    ``reference_attention`` from the saved q, k, v and returns its autograd
-    gradients."""
+    """The kernel's forward; the backward recomputes the scores from the
+    saved q, k, v and returns the gradients of ``reference_attention``
+    (:func:`blockwise_grads`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, backend, scale=None):
@@ -169,10 +175,57 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         backward_recomputes["flash_attention"] += 1
-        grads = _build.recompute_grads(
-            lambda q, k, v: reference_attention(q, k, v, ctx.scale),
-            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out)
+        grads = blockwise_grads(*ctx.saved_tensors, grad_out, ctx.scale,
+                                ctx.needs_input_grad[:3])
         return (*grads, None, None)
+
+
+def blockwise_grads(q, k, v, grad_out, scale, needs) -> list:
+    """The gradients of causal softmax attention with respect to q, k, v
+    (None where ``needs`` says no) given grad_out, one block of
+    :data:`BACKWARD_BLOCK` queries at a time over the keys up to its last
+    query. Per block, with the products in q's dtype and the softmax in
+    float32 (float64 for float64 inputs), as ``reference_attention``
+    rounds them (the scores out of the activations' dtype product, the
+    probabilities P rounded to it before each product): S = Q K^T scale,
+    P = softmax(S), O = P V, dV += P^T dO, dP = dO V^T, dS = P (dP -
+    rowsum(dO O)), dQ = dS K scale, dK += dS^T Q scale; a kv head takes the
+    sum over its query heads; dK and dV are summed over the blocks in
+    order, in the softmax's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    dt, f32 = q.dtype, _acc_dtype(q.dtype)
+    dq = torch.empty_like(q) if needs[0] else None
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    pos = torch.arange(S, device=q.device)
+    for q0 in range(0, S, BACKWARD_BLOCK):
+        q1 = min(q0 + BACKWARD_BLOCK, S)
+        qi = q[:, q0:q1].reshape(B, q1 - q0, KV, G, hd)
+        do = grad_out[:, q0:q1].to(dt).reshape(B, q1 - q0, KV, G, hd)
+        ki, vi = k[:, :q1], v[:, :q1]
+        s = torch.einsum("bqcgd,bkcd->bcgqk", qi, ki).to(f32) * scale
+        s = s.masked_fill(pos[q0:q1, None] < pos[None, :q1], -math.inf)
+        p = torch.softmax(s, dim=-1)
+        del s
+        pd = p.to(dt)
+        o = torch.einsum("bcgqk,bkcd->bqcgd", pd, vi).to(f32)
+        dv[:, :q1] += torch.einsum("bcgqk,bqcgd->bkcd", pd, do).to(f32)
+        del pd
+        rows = (do.to(f32) * o).sum(-1).permute(0, 2, 3, 1)   # b c g q
+        dp = torch.einsum("bqcgd,bkcd->bcgqk", do, vi).to(f32)
+        ds = (p * (dp - rows[..., None])).to(dt)
+        del p, dp
+        if needs[0]:
+            dq[:, q0:q1] = (torch.einsum("bcgqk,bkcd->bqcgd", ds, ki)
+                            .to(f32) * scale).reshape(B, q1 - q0, H, hd)
+        dk[:, :q1] += torch.einsum("bcgqk,bqcgd->bkcd", ds, qi).to(f32) \
+            * scale
+        del ds
+    return [dq, dk.to(k.dtype) if needs[1] else None,
+            dv.to(v.dtype) if needs[2] else None]
 
 
 def kernel_forward(q, k, v, *, scale: Optional[float] = None

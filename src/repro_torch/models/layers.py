@@ -277,7 +277,8 @@ def causal_attention(q, k, v, *, backend: str = "auto", scale=None):
     flash-attention kernel's wrapper (``ops.flash_attention``); when grad
     is enabled and an input requires it, the wrapper goes through its
     ``autograd.Function`` (the kernel forward, the gradient of
-    :func:`reference_attention` recomputed in the backward). In
+    :func:`reference_attention` taken a block of queries at a time from
+    the recomputed scores in the backward). In
     bfloat16 the kernel rounds the unnormalised probabilities of each
     64-key tile to bfloat16 before P.V and keeps scores, row sums and the
     accumulator in float32; its plain version (``backend="torch"``, like

@@ -5,7 +5,8 @@ cross entropy plus the auxiliary losses of ``AUX_COEFS``).
 Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``), ``hybrid`` (``rglru``) and
 ``audio`` (``whisper``); ``hybrid_moe`` (``hybrid_moe``, Granite-4.0-H)
-is the port's own, with no counterpart in the reference. :func:`abstract_init` and :func:`abstract_cache`
+and ``jamba`` (``jamba``, Jamba2) are the port's own, with no counterpart
+in the reference. :func:`abstract_init` and :func:`abstract_cache`
 build the model and the decode cache as fake tensors for the dry-run
 (``repro_torch.launch.dryrun``): shapes, dtypes and devices, no memory.
 """
@@ -25,7 +26,8 @@ AUX_COEFS = {"load_balance": 0.01, "router_z": 0.001}
 # each family's model class in its module
 _CLASSES = {"dense": "TransformerLM", "moe": "TransformerLM",
             "vlm": "TransformerLM", "ssm": "MambaLM", "hybrid": "HybridLM",
-            "audio": "WhisperLM", "hybrid_moe": "HybridMoELM"}
+            "audio": "WhisperLM", "hybrid_moe": "HybridMoELM",
+            "jamba": "JambaLM"}
 
 # the top-level parameter trees whose leaves the reference stacks on a
 # leading layer axis; the port keeps one module per layer under them
@@ -51,6 +53,8 @@ def _family_module(cfg: ModelConfig):
         from repro_torch.models import whisper as mod
     elif cfg.family == "hybrid_moe":
         from repro_torch.models import hybrid_moe as mod
+    elif cfg.family == "jamba":
+        from repro_torch.models import jamba as mod
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return mod

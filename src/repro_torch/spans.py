@@ -36,7 +36,12 @@ held expert), ``moe/held_kept`` (those that found a slot) and
 backward kernel). Counters of the norms: ``norm/rows`` (the rows of every
 forward call of ``models/layers.rms_norm``, this rank's) and
 ``norm/kernel_rows`` (the rows of each launch of the norm's forward
-kernel, ``kernels/rms_norm.py``).
+kernel, ``kernels/rms_norm.py``). Counters of the selective scan
+(``kernels/selective_scan.py``): ``selective_scan/calls`` (every forward
+call and every backward of ``SelectiveScan``) and
+``selective_scan/kernel_calls`` (each launch of its forward or backward
+kernel); its device time sits on the op ``repro_torch::selective_scan`` and
+the node ``SelectiveScanBackward``.
 """
 from __future__ import annotations
 

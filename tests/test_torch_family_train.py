@@ -2,8 +2,8 @@
 (``chip_smoke.py`` phase 18), on the CPU:
 
 - the vlm cuts that keep one cross block (``num_layers=1,
-  cross_attn_every=1``, and the card's ``num_layers=2,
-  cross_attn_every=2``) at SMOKE width, 3 float32 steps against the
+  cross_attn_every=1``, and the card's ``num_layers=3,
+  cross_attn_every=3``) at SMOKE width, 3 float32 steps against the
   reference's jitted step with the same cut, at ``test_torch_train_step``'s
   float32 bars;
 - dbrx-132b with bfloat16 Adam moments (``OptHParams(state_dtype=
@@ -11,11 +11,14 @@
   same hparams, its update cut into pieces (``kernels.adamw.UPDATE_PIECE``
   made small); the piecewise update bit for bit the whole one;
 - the flash launches and backward recomputes a train step derives from
-  the config (``chip_smoke.per_train_step``) against the calls of the
-  kernels' Functions on the CPU's plain path, every family;
+  the config (``chip_smoke.per_train_step``), and the selective scan's
+  forward and backward launches (``chip_smoke.scan_launches``), against
+  the calls of the kernels' Functions on the CPU's plain path, every
+  family;
 - each card configuration chosen from the dry-run's prediction
   (``chip_smoke.choose_train_cut``: the train step traced on a fake (1, 1)
-  ``cpu`` mesh, arguments plus peak temporaries) at most 72 GB, in a
+  ``cpu`` mesh, or as one card runs it for granite and jamba, arguments
+  plus peak temporaries) at most 72 GB, in a
   subprocess (a process group must not outlive its test).
 
 Bars of the bf16-moment test: metrics and parameters at the float32 bars
@@ -41,6 +44,7 @@ from repro_torch.convert import opt_state_to_numpy
 from repro_torch.data import pipeline as DP
 from repro_torch.kernels import adamw as AW
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import selective_scan as ss_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as OPT
@@ -52,15 +56,16 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 VLM_CUT = dict(num_layers=1, cross_attn_every=1)
-# the vlm cut the dry-run's prediction chooses for the card: two self blocks
-# and their cross block
-VLM_CARD_CUT = dict(num_layers=2, cross_attn_every=2)
+# the vlm cut the dry-run's prediction chooses for the card: three self
+# blocks and their cross block
+VLM_CARD_CUT = dict(num_layers=3, cross_attn_every=3)
 # what the dry-run's prediction chooses for the card: (depth, Adam moments)
 CARD_CUTS = {"dbrx-132b": (1, "bfloat16"),
-             "llama-3.2-vision-90b": (2, "bfloat16"),
+             "llama-3.2-vision-90b": (3, "bfloat16"),
              "whisper-tiny": (4, "float32"),
              "recurrentgemma-2b": (26, "bfloat16"),
-             "granite-4.0-h-small": (10, "float32")}
+             "granite-4.0-h-small": (10, "float32"),
+             "jamba2-3b": (28, "float32")}
 
 
 @pytest.mark.parametrize("cut", [VLM_CUT, VLM_CARD_CUT],
@@ -154,7 +159,8 @@ def test_piecewise_update_is_the_whole_update_bit_for_bit(monkeypatch):
 COUNT_CASES = [("llama3.2-1b", {}), ("mamba2-130m", {}), ("dbrx-132b", {}),
                ("llama-3.2-vision-90b", {}), ("llama-3.2-vision-90b", VLM_CUT),
                ("llama-3.2-vision-90b", VLM_CARD_CUT), ("whisper-tiny", {}),
-               ("recurrentgemma-2b", {}), ("granite-4.0-h-small", {})]
+               ("recurrentgemma-2b", {}), ("granite-4.0-h-small", {}),
+               ("jamba2-3b", {})]
 
 
 @pytest.mark.parametrize("arch,cut", COUNT_CASES,
@@ -168,12 +174,17 @@ def test_derived_kernel_calls_per_train_step(arch, cut, monkeypatch):
     layer: both as ``per_train_step`` derives them."""
     cfg = dataclasses.replace(CB.get_config(arch, smoke=True),
                               dtype="float32", **cut)
-    calls = {"flash_attention": 0, "ssd_scan": 0}
-    for name, mod in (("flash_attention", fa_mod), ("ssd_scan", ssd_mod)):
-        def counting(*a, _orig=mod._forward, _name=name, **kw):
+    calls = {"flash_attention": 0, "ssd_scan": 0, "selective_scan": 0,
+             "selective_scan_backward": 0}
+    for name, mod, fn in (("flash_attention", fa_mod, "_forward"),
+                          ("ssd_scan", ssd_mod, "_forward"),
+                          ("selective_scan", ss_mod, "_forward"),
+                          ("selective_scan_backward", ss_mod,
+                           "selective_scan_backward_plain")):
+        def counting(*a, _orig=getattr(mod, fn), _name=name, **kw):
             calls[_name] += 1
             return _orig(*a, **kw)
-        monkeypatch.setattr(mod, "_forward", counting)
+        monkeypatch.setattr(mod, fn, counting)
     fa_mod.reset_launches()
     ssd_mod.reset_launches()
     model = M.init(cfg, seed=0, device="cpu").requires_grad_(True)
@@ -186,6 +197,8 @@ def test_derived_kernel_calls_per_train_step(arch, cut, monkeypatch):
         assert (calls[name], mod.backward_recomputes[name]) \
             == chip_smoke.per_train_step(cfg, name), name
         assert mod.launches[name] == 0
+    assert {k: calls[k] for k in ss_mod.launches} \
+        == chip_smoke.scan_launches(cfg)
     assert sum(calls.values()) > 0 or cfg.family == "hybrid"
 
 

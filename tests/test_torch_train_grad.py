@@ -2,12 +2,15 @@
 plain forward standing in for the kernel (``backend="torch"`` goes through
 the same Function as the card's kernel):
 
-- ``FlashAttention``'s gradients equal the direct autograd of
-  ``reference_attention`` (the reference's train-time attention, both its
-  ``_sdpa`` and blocked regimes), and ``SSDScan``'s, for all four of X,
-  Adt, Bc and Cc, the direct autograd of ``ssd_chunked``: bit for bit,
-  since the backward recomputes exactly that function from the saved
-  inputs; a float64 ``gradcheck`` passes for both at a tiny size;
+- ``FlashAttention``'s gradients (softmax attention's, taken a block of
+  queries at a time) equal the direct autograd of ``reference_attention``
+  (the reference's train-time attention, both its ``_sdpa`` and blocked
+  regimes) to the rounding of the inputs' dtype, and lie as close to that
+  autograd in float64 as the reference's own do; ``SSDScan``'s, for all
+  four of X, Adt, Bc and Cc, equal the direct autograd of
+  ``ssd_chunked`` bit for bit, since the backward recomputes exactly that
+  function from the saved inputs; a float64 ``gradcheck`` passes for
+  both at a tiny size;
 - a kernel launch on grad-requiring inputs outside the Function raises;
 - a whole model through the Functions gives the reference route's
   parameter gradients (float32, atol 1e-6 of each tensor's largest), and
@@ -38,13 +41,31 @@ def _grads(out, inputs, grad_out):
     return torch.autograd.grad(out, inputs, grad_out)
 
 
+# each gradient's norm gap from the reference's autograd in the inputs'
+# dtype: 16 units of float32's roundoff (2**-24), 4 of bfloat16's (2**-8),
+# for two sums of the same terms in another order and rounding; float64 at
+# float32's 2**-40 of it
+FLASH_GRAD_BAR = {torch.float32: 2.0 ** -20, torch.bfloat16: 2.0 ** -6,
+                  torch.float64: 2.0 ** -40}
+
+
+def _gap(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
 @pytest.mark.parametrize("S,dtype", [(24, torch.float32),
                                      (1100, torch.float32),
                                      (24, torch.bfloat16),
-                                     (1100, torch.bfloat16)])
+                                     (1100, torch.bfloat16),
+                                     (24, torch.float64),
+                                     (1100, torch.float64)])
 def test_flash_function_grads_equal_reference_autograd(S, dtype):
     """S 24: the reference's ``_sdpa``; S 1100: its blocked online softmax
-    with a short last block."""
+    with a short last block, and three of the backward's query blocks (a
+    short last one). Each gradient within ``FLASH_GRAD_BAR`` of the
+    reference's autograd in the same dtype, and no further than twice the
+    reference's own gap from the float64 autograd of the same inputs: the
+    Function's gradient is as accurate as the one it replaces."""
     rng = np.random.default_rng(0)
     q, k, v = (_randn(rng, (1, S, h, 16), dtype).requires_grad_()
                for h in (4, 2, 2))
@@ -54,9 +75,12 @@ def test_flash_function_grads_equal_reference_autograd(S, dtype):
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     got = _grads(out, (q, k, v), go)
     want = _grads(reference_attention(q, k, v), (q, k, v), go)
-    for a, b in zip(got, want):
+    wide = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    true = _grads(reference_attention(*wide), wide, go.double())
+    for a, b, t in zip(got, want, true):
         assert a.dtype == dtype
-        assert torch.equal(a, b)
+        assert _gap(a, b) <= FLASH_GRAD_BAR[dtype]
+        assert _gap(a, t) <= 2 * _gap(b, t) or _gap(a, t) <= 2.0 ** -48
     assert fa.backward_recomputes["flash_attention"] == 1
     assert fa.launches["flash_attention"] == 0     # the plain forward
 
